@@ -1,0 +1,102 @@
+"""Build-at-first-use of the CUDA kernels (counterpart of the native
+engine loader, ``libflate_tpu/native/__init__.py``).
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, named by a hash of the sources,
+under ``build/torch_kernels/`` at the repository root, and loaded with
+``ctypes``.  Each C entry point launches on the stream it is given and
+returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+A failed build or load raises too: nothing falls back to the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_CSRC = pathlib.Path(__file__).parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
+    "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# C signatures: "p" pointer or stream (c_void_p), "i" int, "q" int64
+_SIGNATURES = {
+    "lf_sync_decode": "pqpppppipiip",
+    "lf_rank_emit_src": "pppppiiip",
+    "lf_resolve_bytes": "pppiip",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libflate_cuda-{h.hexdigest()[:12]}.so"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "on a machine with the CUDA toolkit")
+    return nvcc
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile the kernels unless the hashed library already exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    if verbose and (res.stdout or res.stderr):
+        print(res.stdout + res.stderr, flush=True)
+    os.replace(tmp, so)
+    return so
+
+
+def load(verbose: bool = False):
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build(verbose)))
+            for name, sig in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [_CTYPES[c] for c in sig]
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` on the current CUDA stream; the stream
+    is appended as the last argument.  Raises if the launch failed."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(load(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -1,0 +1,46 @@
+"""Carry the reference's decode state across to the port.
+
+:func:`from_reference_group` turns one group dict of the reference's
+``libflate_tpu.formats.pgzf._prepare_sync_device`` (numpy or jax arrays)
+into the dict that :func:`libflate_tpu_torch.formats.pgzf._run_sync_chain`
+takes, on a given device, so both sides decode identical state.  The
+reference stages each chunk slot as a column of ``D`` words in its TPU
+layout ``(P, D*8, 128)``; the port reads one flat word stream with an
+absolute start bit per slot, so the columns are laid end to end and slot
+s starts at bit ``s*D*32 + sb[s]``.  Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+SUBLANES, LANES = 8, 128          # the reference's slot tiling
+
+
+def from_reference_group(prep: dict, device="cpu") -> dict:
+    staged = np.asarray(prep["staged"]).view(np.uint32)
+    p_, rows, lanes = staged.shape
+    d_words = rows // SUBLANES
+    n_slots = prep["bsz"] * prep["max_nc"]
+    # slot (p, sub, lane) owns staged[p, r*8+sub, lane] for r < D
+    cols = staged.reshape(p_, d_words, SUBLANES, lanes).transpose(
+        0, 2, 3, 1).reshape(p_ * SUBLANES * lanes, d_words)[:n_slots]
+    sb = np.asarray(prep["sb"]).reshape(-1)[:n_slots].astype(np.int64)
+    counts = np.asarray(prep["counts"]).reshape(-1)[:n_slots]
+    start_bits = np.arange(n_slots, dtype=np.int64) * d_words * 32 + sb
+
+    def tensor(a, dtype):
+        return torch.from_numpy(np.array(a)).to(device, dtype)
+
+    return {
+        "words": tensor(cols.reshape(-1).view(np.int32), torch.int32),
+        "start_bits": tensor(start_bits, torch.int64),
+        "counts": tensor(counts.astype(np.int32), torch.int32),
+        "lit_t": tensor(np.asarray(prep["lit_t"], np.int32), torch.int32),
+        "dist_t": tensor(np.asarray(prep["dist_t"], np.int32), torch.int32),
+        "n_tokens": tensor(np.asarray(prep["n_tokens"], np.int32),
+                           torch.int32),
+        **{k: prep[k] for k in ("k_tok", "root_bits", "bsz", "max_nc",
+                                "member_cap", "isizes", "crcs_expected",
+                                "member0")},
+    }

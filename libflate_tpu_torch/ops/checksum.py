@@ -1,0 +1,172 @@
+"""Member CRC-32 f-values on the device (counterpart of ``crc32_f_rows``,
+``libflate_tpu/ops/checksum.py:170``, with ``_crc32_f_padded`` (``:116``),
+``_apply_gf2_cols`` (``:157``), and the host finish
+``crc32_from_padded_f`` (``:202``), ``_init_term`` (``:77``) and
+``_inv_shift_cols`` (``:196``) in numpy).
+
+CRC-32 is linear over GF(2): a 64-byte chunk's register contribution is
+``bits(chunk) @ G`` mod 2 for a constant 512x32 bit matrix ``G``, and
+chunks fold pairwise with constant 32x32 "shift by 64*2^k bytes"
+matrices.  The products are float32 matrix products, as in the reference
+(torch glue, not a kernel): every operand is 0 or 1 and every sum is at
+most 512, which float32 holds exactly.  TF32 is switched off around them
+all the same, so the result never depends on a global precision setting.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import numpy as np
+import torch
+
+from libflate_tpu.utils.checksum import (CRC_TABLE, _gf2_matrix_times,
+                                         _shift_operator, gf2_matrix_inverse)
+
+CHUNK = 64                        # bytes per CRC chunk (512 bits)
+#: bytes of float32 bit matrix per slice of members (bounds peak memory)
+_SLICE_BYTES = 1 << 28
+
+
+def _crc_raw_register(data: np.ndarray) -> int:
+    """CRC register after ``data``, starting from register 0."""
+    c = np.uint32(0)
+    for b in data:
+        c = CRC_TABLE[(c ^ b) & 0xFF] ^ (c >> np.uint32(8))
+    return int(c)
+
+
+def _bit_matrix(cols) -> np.ndarray:
+    """(32, 32) float32: element [j, o] = bit o of cols[j]."""
+    return ((np.asarray(cols, np.uint64)[:, None]
+             >> np.arange(32, dtype=np.uint64)[None, :]) & 1
+            ).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def _chunk_basis_matrix() -> np.ndarray:
+    """G: (512, 32) float32; row i = register of a chunk with only bit i
+    set (byte i // 8, bit i % 8, LSB first)."""
+    g = np.zeros((8 * CHUNK, 32), np.float32)
+    for i in range(8 * CHUNK):
+        chunk = np.zeros(CHUNK, np.uint8)
+        chunk[i // 8] = 1 << (i % 8)
+        v = _crc_raw_register(chunk)
+        g[i] = (v >> np.arange(32)) & 1
+    return g
+
+
+@functools.lru_cache(maxsize=32)
+def _level_matrix(level: int) -> np.ndarray:
+    """(32, 32) bit matrix of the shift by CHUNK * 2**level bytes."""
+    return _bit_matrix(_shift_operator(CHUNK * (1 << level)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _init_term(n: int) -> int:
+    """A^n(0xFFFFFFFF): the initial register propagated over n bytes."""
+    if n == 0:
+        return 0xFFFFFFFF
+    return _gf2_matrix_times(_shift_operator(n), 0xFFFFFFFF)
+
+
+@functools.lru_cache(maxsize=1024)
+def _inv_shift_cols(pad: int) -> np.ndarray:
+    """Columns of the inverse zero-byte shift operator A_pad^{-1}."""
+    return gf2_matrix_inverse(_shift_operator(pad))
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _to_bits(values: torch.Tensor) -> torch.Tensor:
+    """(..., ) int64 registers -> (..., 32) float32 bits."""
+    sh = torch.arange(32, dtype=torch.int64, device=values.device)
+    return ((values[..., None] >> sh) & 1).to(torch.float32)
+
+
+def _from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 32) float32 0/1 -> (...,) int64 registers."""
+    sh = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return (bits.to(torch.int64) << sh).sum(-1)
+
+
+def _apply_gf2_cols(values: torch.Tensor, cols) -> torch.Tensor:
+    """Apply a GF(2) operator (32 column u32s) to (B,) int64 registers."""
+    m = torch.from_numpy(_bit_matrix(cols)).to(values.device)
+    return _from_bits(torch.remainder(_to_bits(values) @ m, 2.0))
+
+
+def _crc32_f_padded(rows: torch.Tensor) -> torch.Tensor:
+    """Raw f-values (register from 0) of (b, M*64) uint8 rows, M = 2^k."""
+    b, n = rows.shape
+    mp = n // CHUNK
+    sh = torch.arange(8, dtype=torch.uint8, device=rows.device)
+    bits = ((rows.reshape(b * mp, CHUNK)[:, :, None] >> sh) & 1)
+    bits = bits.reshape(b * mp, 8 * CHUNK).to(torch.float32)
+    g = torch.from_numpy(_chunk_basis_matrix()).to(rows.device)
+    v = torch.remainder(bits @ g, 2.0).reshape(b, mp, 32)
+    level = 0
+    while v.shape[1] > 1:
+        a = torch.from_numpy(_level_matrix(level)).to(rows.device)
+        v = torch.remainder(torch.remainder(v[:, 0::2] @ a, 2.0)
+                            + v[:, 1::2], 2.0)
+        level += 1
+    return _from_bits(v[:, 0])
+
+
+def crc32_f_rows(data: torch.Tensor) -> torch.Tensor:
+    """Raw CRC f-values of LEFT-aligned (B, N) uint8 rows.
+
+    Rows are zero-padded at the end to a power-of-two chunk count and the
+    trailing-zero shift is folded back out, so each value is the register
+    over exactly the N row bytes (including the caller's own trailing
+    zeros; :func:`crc32_from_padded_f` removes those).  Returns (B,) int32
+    bit patterns of the uint32 registers.
+    """
+    bsz, n = data.shape
+    m = max(1, -(-n // CHUNK))
+    mp = 1 << (m - 1).bit_length()
+    pad = mp * CHUNK - n
+    per = max(1, _SLICE_BYTES // (mp * 8 * CHUNK * 4))
+    parts = []
+    with _no_tf32():
+        for b0 in range(0, bsz, per):
+            rows = data[b0:b0 + per].to(torch.uint8)
+            if pad:
+                rows = torch.nn.functional.pad(rows, (0, pad))
+            parts.append(_crc32_f_padded(rows))
+        f = torch.cat(parts) if parts else torch.zeros(
+            0, dtype=torch.int64, device=data.device)
+        if pad:
+            f = _apply_gf2_cols(f, _inv_shift_cols(pad))
+    return torch.where(f >= 1 << 31, f - (1 << 32), f).to(torch.int32)
+
+
+def crc32_from_padded_f(f_rows, lengths, row_bytes: int) -> np.ndarray:
+    """Finish CRCs from :func:`crc32_f_rows` output (host, numpy).
+
+    ``f_rows`` are registers over whole rows INCLUDING trailing zeros;
+    ``pad`` zero bytes multiply the register by the shift operator A_pad,
+    so the true-data register is A_pad^{-1} f.
+    """
+    f = np.asarray(f_rows).astype(np.int32).view(np.uint32)
+    lens = np.asarray(lengths)
+    out = np.zeros(len(f), np.uint32)
+    for i, (fv, ln) in enumerate(zip(f, lens)):
+        ln = int(ln)
+        if ln == 0:
+            continue
+        pad = row_bytes - ln
+        v = int(fv)
+        if pad:
+            v = _gf2_matrix_times(_inv_shift_cols(pad), v)
+        out[i] = (v ^ _init_term(ln)) ^ 0xFFFFFFFF
+    return out

@@ -1,0 +1,89 @@
+"""Output-position rank + mod-collapse (counterpart of
+``libflate_tpu/ops/pallas_rank.py``: ``rank_emit_src``, the glue of
+``_rank_call`` and ``_rank_kernel`` with ``emit="src"``).
+
+Each output position finds its covering token (the last valid token
+whose start is <= p) by a binary search over the member's sorted starts
+— the reference's coarse per-128 bucket counts (an MXU one-hot einsum)
+are a TPU device to avoid gathers and have no counterpart — and emits the
+chase-ready ``(src, lit)`` pair of ``csrc/rank.cu``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+
+def _sentinel_starts(starts, valid, out_cap: int) -> torch.Tensor:
+    """Invalid token slots read start ``out_cap + 2`` (never <= p)."""
+    return torch.where(valid, starts.to(torch.int32),
+                       out_cap + 2).to(torch.int32).contiguous()
+
+
+def rank_emit_src_plain(starts, pk, valid, n_out, out_cap: int):
+    """Plain PyTorch version of the kernel (searchsorted + gather)."""
+    st = _sentinel_starts(starts, valid, out_cap)
+    bsz, t = st.shape
+    p = torch.arange(out_cap, dtype=torch.int32, device=st.device)
+    pos = p.expand(bsz, out_cap).contiguous()
+    idx = (torch.searchsorted(st, pos, right=True) - 1).clamp(0, t - 1)
+    o_s = torch.gather(st, 1, idx)
+    o_p = torch.gather(pk.to(torch.int32), 1, idx)
+    d = (o_p >> 9) & 0xFFFF
+    is_lit = d == 0
+    rel = pos - o_s
+    src = torch.where(is_lit, pos,
+                      torch.remainder(rel, d.clamp(min=1)) + o_s - d)
+    lit = torch.where(is_lit, o_p & 255, 0)
+    live = pos < n_out.to(torch.int32)[:, None]
+    src = torch.where(live, src.clamp(0, out_cap - 1), pos)
+    lit = torch.where(live, lit, 0)
+    return src.to(torch.int32), lit.to(torch.int32)
+
+
+def rank_emit_src(starts: torch.Tensor, pk: torch.Tensor,
+                  valid: torch.Tensor, n_out: torch.Tensor, out_cap: int):
+    """Per output position, the mod-collapsed source and literal byte.
+
+    Args:
+        starts: (B, T) int32 token output starts, non-decreasing over the
+            valid tokens, which form a prefix of each row (every token
+            emits >= 1 byte).
+        pk: (B, T) int32 packed tokens ``a | b << 9`` (b: distance, 0 for
+            a literal).
+        valid: (B, T) bool token-slot validity.
+        n_out: (B,) int32 live output length per member.
+        out_cap: output positions per member.
+
+    Returns (src, lit), each (B, out_cap) int32.  A literal or padding
+    position is a fixpoint ``src[p] == p``; a match byte points at its
+    pre-token source ``(p - s) % d + s - d``, clipped to
+    ``[0, out_cap - 1]``; positions at or past ``n_out`` get
+    ``src = p, lit = 0``.  CPU tensors run :func:`rank_emit_src_plain`;
+    CUDA tensors run the kernel.
+    """
+    bsz, t = starts.shape
+    if (pk.shape != (bsz, t) or valid.shape != (bsz, t)
+            or n_out.shape != (bsz,) or t < 1 or out_cap < 1):
+        raise ValueError("rank_emit_src: bad argument shapes")
+    if starts.device.type == "cpu":
+        return rank_emit_src_plain(starts, pk, valid, n_out, out_cap)
+    if starts.device.type != "cuda":
+        raise ValueError(f"rank_emit_src: unsupported device "
+                         f"{starts.device}")
+    st = _sentinel_starts(starts, valid, out_cap)
+    pk32 = pk.to(torch.int32).contiguous()
+    no = n_out.to(torch.int32).contiguous()
+    if pk32.device != st.device or no.device != st.device:
+        raise ValueError("rank_emit_src: tensors on different devices")
+    src = torch.empty((bsz, out_cap), dtype=torch.int32, device=st.device)
+    lit = torch.empty_like(src)
+    _build.launch("lf_rank_emit_src", st.data_ptr(), pk32.data_ptr(),
+                  no.data_ptr(), src.data_ptr(), lit.data_ptr(), bsz, t,
+                  out_cap)
+    rank_emit_src.launches += 1
+    return src, lit
+
+
+rank_emit_src.launches = 0

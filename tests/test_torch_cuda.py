@@ -1,0 +1,161 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda`` and skipped where torch sees no CUDA device.  On a GPU
+host (the repository's conftest imports JAX, which that host lacks)::
+
+    python -m pytest --noconftest -p no:cacheprovider \
+        tests/test_torch_cuda.py -q
+
+Every comparison is exact equality: the codec is integer.
+"""
+import gzip
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from libflate_tpu_torch.formats import pgzf
+from libflate_tpu_torch.ops import device_expand, expand, rank
+from libflate_tpu_torch.ops import sync_decode as sd
+
+pytestmark = pytest.mark.cuda
+
+DATA = pathlib.Path(__file__).parent / "data"
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def group(dev):
+    (g,) = pgzf._prepare_sync_device(
+        (DATA / "pgzf_sync_zipf_small.pgz").read_bytes(), dev)
+    return g
+
+
+def _sd_args(g, lit=None, root_bits=None):
+    return (g["words"], g["start_bits"], g["counts"],
+            g["lit_t"] if lit is None else lit, g["dist_t"], g["k_tok"],
+            root_bits or g["root_bits"])
+
+
+def test_sync_decode_kernel_matches_plain(group):
+    args = _sd_args(group)
+    got = sd.sync_decode(*args)
+    assert got.is_cuda
+    torch.testing.assert_close(got, sd.sync_decode_plain(*args),
+                               rtol=0, atol=0)
+
+
+def test_sync_decode_kernel_invalid_entries_and_wide_root(group):
+    bad = group["lit_t"].clone()
+    bad[(bad >> 4) == ord("\n")] = 0
+    args = _sd_args(group, lit=bad)
+    torch.testing.assert_close(sd.sync_decode(*args),
+                               sd.sync_decode_plain(*args), rtol=0, atol=0)
+    wide = _sd_args(group, lit=group["lit_t"].repeat(4), root_bits=12)
+    torch.testing.assert_close(sd.sync_decode(*wide),
+                               sd.sync_decode(*_sd_args(group)),
+                               rtol=0, atol=0)
+
+
+def test_sync_decode_kernel_reads_zero_past_the_stream(dev):
+    """Slots that start near the end read zero words, as the plain
+    version does, and never fault."""
+    words = torch.randint(-2**31, 2**31 - 1, (5,), dtype=torch.int32,
+                          device=dev)
+    start = torch.tensor([0, 100, 150, 159], dtype=torch.int64, device=dev)
+    cnt = torch.full((4,), 256, dtype=torch.int32, device=dev)
+    lit = torch.randint(0, 4096, (1 << 10,), dtype=torch.int32, device=dev)
+    dist = torch.randint(0, 512, (256,), dtype=torch.int32, device=dev)
+    args = (words, start, cnt, lit, dist, 256, 10)
+    torch.testing.assert_close(sd.sync_decode(*args),
+                               sd.sync_decode_plain(*args), rtol=0, atol=0)
+
+
+def test_rank_and_resolve_kernels_match_plain(group):
+    toks = sd.sync_decode(*_sd_args(group))
+    cap = group["member_cap"]
+    args = device_expand.rank_inputs(toks.view(group["bsz"], -1),
+                                     group["n_tokens"], cap)[:4] + (cap,)
+    src, lit = rank.rank_emit_src(*args)
+    src_p, lit_p = rank.rank_emit_src_plain(*args)
+    torch.testing.assert_close(src, src_p, rtol=0, atol=0)
+    torch.testing.assert_close(lit, lit_p, rtol=0, atol=0)
+    torch.testing.assert_close(expand.resolve_bytes(src, lit),
+                               expand.resolve_bytes_plain(src, lit),
+                               rtol=0, atol=0)
+
+
+def test_rank_kernel_error_rows_match_plain(dev):
+    packed = torch.zeros((3, 64), dtype=torch.int32, device=dev)
+    packed[:, 0] = ord("x")
+    packed[0, 1] = 5 | (3 << 9)
+    packed[1, 1:] = 258 | (1 << 9)
+    n_tok = torch.tensor([2, 64, 0], dtype=torch.int32, device=dev)
+    out, n_out, err = device_expand.expand_members(packed, n_tok, 1024)
+    args = device_expand.rank_inputs(packed, n_tok, 1024)[:4] + (1024,)
+    src_p, lit_p = rank.rank_emit_src_plain(*args)
+    torch.testing.assert_close(rank.rank_emit_src(*args)[0], src_p,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out, expand.resolve_bytes_plain(src_p, lit_p),
+                               rtol=0, atol=0)
+    assert err.tolist() == [True, True, False]
+
+
+@pytest.mark.parametrize("n", [3000, 4096, 70000])
+def test_resolve_kernel_random_pointers_match_plain(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    pos = torch.arange(n, device=dev)[None, :].expand(3, n)
+    back = (torch.rand((3, n), generator=g, device=dev) * pos).long()
+    src = torch.where(torch.rand((3, n), generator=g, device=dev) < 0.1,
+                      pos, back)
+    src[2, 7::50] += 9                    # some forward (corrupt) pointers
+    src[2, 11::50] = -1
+    lit = torch.randint(0, 256, (3, n), generator=g, device=dev)
+    src, lit = src.int(), lit.int()
+    torch.testing.assert_close(expand.resolve_bytes(src, lit),
+                               expand.resolve_bytes_plain(src, lit),
+                               rtol=0, atol=0)
+
+
+def test_resolve_kernel_deep_chains(dev):
+    """3-byte matches each copying the previous one: the longest chase."""
+    n = 8192
+    p = torch.arange(n, dtype=torch.int32, device=dev)
+    src = torch.where(p < 3, p, p - 3)[None, :]
+    lit = torch.full((1, n), 7, dtype=torch.int32, device=dev)
+    lit[0, :3] = torch.tensor([1, 2, 3], device=dev)
+    out = expand.resolve_bytes(src, lit)
+    assert out[0].tolist() == [1, 2, 3] * (n // 3) + [1, 2][:n % 3]
+
+
+@pytest.mark.parametrize("name", ["pgzf_sync_zipf_small.pgz",
+                                  "pgzf_sync_zipf_2m.pgz"])
+def test_decompress_to_device_on_cuda(dev, name, monkeypatch):
+    data = (DATA / name).read_bytes()
+
+    def no_plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, fn in ((sd, "sync_decode_plain"), (rank, "rank_emit_src_plain"),
+                    (expand, "resolve_bytes_plain")):
+        monkeypatch.setattr(mod, fn, no_plain)
+    before = [sd.sync_decode.launches, rank.rank_emit_src.launches,
+              expand.resolve_bytes.launches]
+    out, lengths = pgzf.decompress_to_device(data, verify=True,
+                                             device="cuda")
+    after = [sd.sync_decode.launches, rank.rank_emit_src.launches,
+             expand.resolve_bytes.launches]
+    assert out.is_cuda and lengths.is_cuda
+    assert all(a == b + 1 for a, b in zip(after, before))
+    live = (torch.arange(out.shape[1], device=dev)[None, :]
+            < lengths[:, None])
+    assert bytes(out[live].cpu().numpy()) == gzip.decompress(data)
+    assert not out[~live].any()
+    np.testing.assert_array_equal(lengths.cpu().numpy() > 0, True)

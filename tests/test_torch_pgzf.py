@@ -1,0 +1,171 @@
+"""The port's whole decode slice vs the reference and stdlib gzip.
+
+``decompress_to_device(device="cpu")`` runs every kernel's plain
+version.  It is held against the reference's ``_run_sync_chain`` (Pallas
+interpret mode, once per module) on the small fixture, fed identical
+state through ``convert.from_reference_group``, and against stdlib gzip
+on both committed fixtures.  Also: the fixtures themselves, the error
+cases, the CUDA guard, and an import of the whole package with JAX
+blocked.
+"""
+import gzip
+import hashlib
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from libflate_tpu.formats.gzip import GzipError  # noqa: E402
+from libflate_tpu_torch import convert  # noqa: E402
+from libflate_tpu_torch.formats import pgzf as port  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+DATA = ROOT / "tests" / "data"
+FIXTURES = ["pgzf_sync_zipf_small.pgz", "pgzf_sync_zipf_2m.pgz"]
+
+
+@pytest.fixture(scope="module")
+def interpret():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LIBFLATE_PALLAS_INTERPRET", "1")
+        yield
+
+
+@pytest.fixture(scope="module")
+def small():
+    return (DATA / FIXTURES[0]).read_bytes()
+
+
+@pytest.fixture(scope="module")
+def ref_chain(interpret, small):
+    """The reference's group and its (plain, n_out, err, crc_f)."""
+    from libflate_tpu.formats import pgzf as ref_pgzf
+    (prep,) = ref_pgzf._prepare_sync_device(small)
+    return prep, tuple(np.asarray(a) for a in
+                       ref_pgzf._run_sync_chain(prep))
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_fixture_is_gzip_and_sync_indexed(name):
+    from libflate_tpu.formats import pgzf as ref_pgzf
+    data = (DATA / name).read_bytes()
+    assert len(gzip.decompress(data)) > 0
+    groups = ref_pgzf._prepare_sync_device(data)
+    assert groups and all(g["k_tok"] == 256 for g in groups)
+    script = (ROOT / "scripts" / "make_pgzf_sync_fixture.py").read_text()
+    assert hashlib.sha256(data).hexdigest() in script
+
+
+def test_chain_matches_reference(ref_chain):
+    prep, (w_plain, w_n, w_err, w_crc) = ref_chain
+    plain, n_out, err, crc_f = port._run_sync_chain(
+        convert.from_reference_group(prep))
+    assert plain.dtype == torch.uint8
+    assert plain.shape == (prep["bsz"], prep["member_cap"])
+    np.testing.assert_array_equal(plain.numpy(), w_plain)
+    np.testing.assert_array_equal(n_out.numpy(), w_n)
+    np.testing.assert_array_equal(err.numpy(), w_err)
+    np.testing.assert_array_equal(crc_f.numpy(), w_crc)
+
+
+def test_port_staging_chain_matches_reference(ref_chain, small):
+    _prep, (w_plain, w_n, w_err, w_crc) = ref_chain
+    (g,) = port._prepare_sync_device(small, "cpu")
+    plain, n_out, err, crc_f = port._run_sync_chain(g)
+    np.testing.assert_array_equal(plain.numpy(), w_plain)
+    np.testing.assert_array_equal(crc_f.numpy(), w_crc)
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_decompress_to_device_cpu_matches_gzip(name):
+    data = (DATA / name).read_bytes()
+    out, lengths = port.decompress_to_device(data, verify=True,
+                                             device="cpu")
+    assert out.device.type == lengths.device.type == "cpu"
+    assert out.dtype == torch.uint8 and lengths.dtype == torch.int32
+    live = torch.arange(out.shape[1])[None, :] < lengths[:, None]
+    assert out[live].numpy().tobytes() == gzip.decompress(data)
+    assert not out[~live].any()
+
+
+def test_groups_with_different_tables_are_joined(small):
+    """Two streams with different tables decode as two groups, padded
+    to one member_cap and concatenated."""
+    big = (DATA / FIXTURES[1]).read_bytes()
+    data = small + big[:port.index_members(big)[1].end]
+    assert len(port._prepare_sync_device(data, "cpu")) == 2
+    out, lengths = port.decompress_to_device(data, verify=True,
+                                             device="cpu")
+    assert out.shape == (6, 65536)
+    live = torch.arange(out.shape[1])[None, :] < lengths[:, None]
+    assert out[live].numpy().tobytes() == gzip.decompress(data)
+
+
+def test_crc_mismatch_raises(small):
+    bad = bytearray(small)
+    end = port.index_members(small)[0].end
+    bad[end - 8] ^= 1                     # first member's CRC trailer
+    with pytest.raises(GzipError, match="member 0"):
+        port.decompress_to_device(bytes(bad), verify=True, device="cpu")
+    port.decompress_to_device(bytes(bad), verify=False, device="cpu")
+
+
+def test_stream_without_sync_index_is_not_ported():
+    from libflate_tpu import native
+    from libflate_tpu.formats import pgzf as ref_pgzf
+    if not native.available():
+        pytest.skip("native engine unavailable")
+    stream = ref_pgzf.compress(b"abc" * 5000, member_size=4096,
+                               engine="native")
+    with pytest.raises(ImportError, match="not ported"):
+        port.decompress_to_device(stream, device="cpu")
+    with pytest.raises(ImportError, match="not ported"):
+        port.decompress_to_device(gzip.compress(b"abc"), device="cpu")
+    with pytest.raises(ImportError, match="not ported"):
+        port.decompress_to_device(b"", device="cpu")
+
+
+def test_cuda_device_without_cuda_raises(monkeypatch, small):
+    """No silent CPU fallback: device="cuda" needs CUDA."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    called = []
+    monkeypatch.setattr(port, "_prepare_sync_device",
+                        lambda *a: called.append(a))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.decompress_to_device(small, device="cuda")
+    assert not called
+
+
+_NO_JAX = """
+import importlib, pkgutil, sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax.") or name == "jaxlib":
+            raise ImportError("jax is blocked")
+sys.meta_path.insert(0, _Block())
+import libflate_tpu_torch as pkg
+mods = [m.name for m in
+        pkgutil.walk_packages(pkg.__path__, "libflate_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+from libflate_tpu_torch.formats import pgzf
+out, lengths = pgzf.decompress_to_device(open(sys.argv[1], "rb").read(),
+                                         verify=True, device="cpu")
+assert "jax" not in sys.modules
+print(len(mods), int(lengths.sum()))
+"""
+
+
+def test_imports_and_runs_with_jax_blocked(small):
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n_mods, n_bytes = map(int, res.stdout.split())
+    assert n_mods >= 12
+    assert n_bytes == len(gzip.decompress(small))
