@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main path once on one CUDA card and check it.
+"""Run the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,18 +7,27 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
    no CUDA means exit 1 before anything runs;
-2. build the three CUDA kernels from ``libflate_tpu_torch/csrc`` with nvcc
-   for sm_90a (and the native host engine);
-3. input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times, a
-   64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
-   gzip is the oracle and the native engine must agree with it;
-4. each kernel against its plain PyTorch version on the card, at the
-   shard's own shapes: tokens, (src, lit) and bytes must be identical;
-5. the main path ``decompress_to_device(verify=True, device="cuda")``:
-   plaintext equal to the oracle, every member's CRC checked, and each
-   kernel's launch count above 0;
-6. timing with CUDA events: the device chain, each kernel and each plain
-   version, and the end-to-end call on the host clock.
+2. build the seven CUDA sources from ``libflate_tpu_torch/csrc`` with one
+   nvcc per source, all at once, for sm_90a;
+3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
+   a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
+   gzip is the oracle; the host staging time is printed;
+4. each decode kernel against its plain PyTorch version on the card, at
+   the shard's own shapes: tokens, (src, lit) and bytes must be identical;
+5. the decode main path ``decompress_to_device(verify=True,
+   device="cuda")``, counted: plaintext equal to the oracle, every
+   member's CRC checked, and each decode kernel's launch count above 0;
+6. encode input: that 64 MiB plaintext, 8 batches of 128 members of
+   64 KiB; each encode kernel against its plain version on the card at
+   the first batch's full shapes (128 x 65536), bit-exact;
+7. the encode main path ``compress(device="cuda")`` of the 64 MiB,
+   counted: every encode kernel launched, the stream read back by stdlib
+   gzip and by the port's ``decompress_to_device``;
+8. byte identity with every committed reference stream
+   (``tests/data/pgzf_encode_*.pgz``, written by the JAX reference);
+9. timing with CUDA events (kernels, plain versions, yardsticks, the
+   chains) and on the host clock (the end-to-end calls, host staging
+   split out), each with the card's name and power limit.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -29,6 +38,7 @@ import gzip
 import json
 import pathlib
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -36,8 +46,10 @@ import time
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-FIXTURE = ROOT / "tests" / "data" / "pgzf_sync_zipf_2m.pgz"
+DATA = ROOT / "tests" / "data"
+FIXTURE = DATA / "pgzf_sync_zipf_2m.pgz"
 COPIES = 32
+HBM_BYTES_PER_MS = 3.35e12 / 1e3      # H100 SXM data sheet, 80 GB HBM3
 
 
 def log(msg: str) -> None:
@@ -70,7 +82,13 @@ def cuda_ms(fn, reps: int) -> float:
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def main() -> None:
@@ -78,7 +96,10 @@ def main() -> None:
         sys.exit("chip_smoke: CUDA is not available")
     from libflate_tpu_torch import _build
     from libflate_tpu_torch.formats import pgzf
-    from libflate_tpu_torch.ops import checksum, device_expand, expand, rank
+    from libflate_tpu_torch.ops import (checksum, deflate_encode,
+                                        device_expand, expand, fields, hist,
+                                        pack, parse, pipeline, rank)
+    from libflate_tpu_torch.ops import sort_match as sm
     from libflate_tpu_torch.ops import sync_decode as sd
 
     # 1. environment
@@ -96,20 +117,25 @@ def main() -> None:
     t = time.perf_counter()
     so = _build.build(verbose=True)
     _build.load()
-    log(f"built {so.name} in {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    plain = pgzf.decompress_host(FIXTURE.read_bytes())
-    log(f"native host engine ready in {time.perf_counter() - t:.2f} s")
+    log(f"built {so.name} from {len(_build.sources())} sources in "
+        f"{time.perf_counter() - t:.2f} s")
 
-    # 3. input and oracle
+    # 3. decode input and oracle
     stream = FIXTURE.read_bytes() * COPIES
     oracle = gzip.decompress(stream)
-    if pgzf.decompress_host(stream) != oracle or plain * COPIES != oracle:
-        raise AssertionError("native engine disagrees with stdlib gzip")
-    log(f"input: {len(stream)} stream bytes, {len(oracle)} plaintext bytes")
+    log(f"decode input: {len(stream)} stream bytes, {len(oracle)} "
+        f"plaintext bytes")
+    stage_s = []
+    for _ in range(3):
+        t = time.perf_counter()
+        groups = pgzf._prepare_sync_device(stream, dev)
+        torch.cuda.synchronize()
+        stage_s.append(time.perf_counter() - t)
+    log(f"decode host staging (member index, LS spans, block-header parse "
+        f"of {len(pgzf.index_members(stream))} members, upload): "
+        f"{statistics.median(stage_s) * 1e3:.2f} ms median of 3")
 
-    # 4. kernels against their plain versions, at the shard's shapes
-    groups = pgzf._prepare_sync_device(stream, dev)
+    # 4. decode kernels against their plain versions
     if len(groups) != 1:
         raise AssertionError(f"expected one table group, got {len(groups)}")
     g = groups[0]
@@ -129,7 +155,7 @@ def main() -> None:
             "rank_emit_src": max(max_abs_err(src, src_p),
                                  max_abs_err(lit, lit_p)),
             "resolve_bytes": max_abs_err(out, out_p)}
-    log(f"kernels vs plain at slots={toks.shape[0]} K={g['k_tok']} "
+    log(f"decode kernels vs plain at slots={toks.shape[0]} K={g['k_tok']} "
         f"root_bits={g['root_bits']} members={bsz} member_cap={cap}: "
         f"max_abs_err {errs}")
     if any(errs.values()):
@@ -137,15 +163,18 @@ def main() -> None:
                              f"{errs}")
     del toks_plain, src_p, lit_p, out_p
 
-    # 5. the main path, counted
-    kernels = (sd.sync_decode, rank.rank_emit_src, expand.resolve_bytes)
-    for k in kernels:
+    # 5. the decode main path, counted
+    dec_kernels = (sd.sync_decode, rank.rank_emit_src, expand.resolve_bytes)
+    enc_kernels = (sm.sort_keys, sm.scan_emit, parse.chunk_exits,
+                   parse.walk_emit, hist.token_hist, fields.token_fields,
+                   pack.pack_stitch)
+    for k in dec_kernels + enc_kernels:
         k.launches = 0
     plain_dev, lengths = pgzf.decompress_to_device(stream, verify=True,
                                                    device="cuda")
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in kernels}
-    log(f"main path launches: {launches}")
+    launches = {k.__name__: k.launches for k in dec_kernels}
+    log(f"decode main path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path did not run: {launches}")
     if plain_dev.shape != (bsz, cap) or plain_dev.dtype != torch.uint8:
@@ -157,11 +186,112 @@ def main() -> None:
         raise AssertionError("decoded plaintext differs from stdlib gzip")
     if bool(plain_dev[~live].any()):
         raise AssertionError("nonzero bytes past a member's length")
-    log(f"main path: {len(oracle)} bytes equal to stdlib gzip, "
+    log(f"decode main path: {len(oracle)} bytes equal to stdlib gzip, "
         f"{bsz} member CRCs verified on the port")
+    del plain_dev, live
 
-    # 6. timing
-    nbytes = len(oracle)
+    # 6. encode kernels against their plain versions, first batch
+    data = oracle
+    ms_enc = 65536
+    n_b = pgzf.DEV_BATCH
+    blocks = torch.frombuffer(bytearray(data[:n_b * ms_enc]),
+                              dtype=torch.uint8).view(n_b, ms_enc).to(dev)
+    nv = torch.full((n_b,), ms_enc, dtype=torch.int32, device=dev)
+    keys = sm.prefix_keys(blocks)
+    sk, sp = sm.sort_keys(keys)
+    sk_p, sp_p = sm.sort_keys_plain(keys)
+    cand, m4 = sm.scan_emit(sk, sp, blocks)
+    cand_p, m4_p = sm.scan_emit_plain(sk, sp, blocks)
+    cand2, lens = pipeline.lengths_stage(blocks, nv, cand, m4)
+    jump, tok = parse.parse_inputs(blocks, nv, cand2, lens)
+    ex = parse.chunk_exits(jump)
+    ex_p = parse.chunk_exits_plain(jump)
+    pcap = pipeline.PARSE_CAP
+    slots, ovf = parse.walk_emit(jump, tok, ex, pcap)
+    slots_p, ovf_p = parse.walk_emit_plain(jump, tok, ex, pcap)
+    valid = slots >= 0
+    a = torch.where(valid, slots & 511, 0)
+    b = torch.where(valid, slots >> 9, 0)
+    bins = hist.token_hist(a, b, valid)
+    bins_p = hist.token_hist_plain(a, b, valid)
+    stats = pipeline.shared_stats(a, b, valid)
+    header = deflate_encode.dynamic_header_fields(*stats[:2])
+    tables = fields.field_tables(*stats[2:], dev)
+    a_h = torch.where(valid, a, -1)
+    fv = fields.token_fields(a_h, b, tables)
+    fv_p = fields.token_fields_plain(a_h, b, tables)
+    values, widths = pipeline.shared_assemble(
+        *fv, *header, int(stats[2][256]), int(stats[3][256]))
+    fpad = (-values.shape[1]) % pack.F_CH
+    values = torch.nn.functional.pad(values, (0, fpad)).contiguous()
+    widths = torch.nn.functional.pad(widths, (0, fpad)).contiguous()
+    starts, bits = pack.chunk_starts(widths)
+    cstarts = starts[:, :-1].contiguous()
+    w_out = (int(bits.max()) + 31) // 32 + 1
+    words = pack.pack_stitch(values, widths, cstarts, w_out)
+    words_p = pack.pack_stitch_plain(values, widths, cstarts, w_out)
+    torch.cuda.synchronize()
+    errs.update({
+        "sort_keys": max(max_abs_err(sk, sk_p), max_abs_err(sp, sp_p)),
+        "scan_emit": max(max_abs_err(cand, cand_p), max_abs_err(m4, m4_p)),
+        "chunk_exits": max_abs_err(ex, ex_p),
+        "walk_emit": max(max_abs_err(slots, slots_p),
+                         max_abs_err(ovf, ovf_p)),
+        "token_hist": max_abs_err(bins, bins_p),
+        "token_fields": max(max_abs_err(x, y) for x, y in zip(fv, fv_p)),
+        "pack_stitch": max_abs_err(words, words_p)})
+    log(f"encode kernels vs plain at members={n_b} n={ms_enc} "
+        f"slots={a.shape[1]} fields={values.shape[1]} words={w_out}: "
+        f"max_abs_err { {k: errs[k] for k in errs if k not in launches} } "
+        f"(tokens {int(valid.sum())}, overflow {bool(ovf.any())})")
+    if any(errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: "
+                             f"{errs}")
+    del sk_p, sp_p, cand_p, m4_p, ex_p, slots_p, fv_p, words_p
+
+    # 7. the encode main path, counted
+    for k in dec_kernels + enc_kernels:
+        k.launches = 0
+    enc_stream = pgzf.compress(data, member_size=ms_enc, device="cuda")
+    torch.cuda.synchronize()
+    enc_launches = {k.__name__: k.launches for k in enc_kernels}
+    launches.update(enc_launches)
+    log(f"encode main path launches: {enc_launches}")
+    if min(enc_launches.values()) < 1:
+        raise AssertionError(f"a kernel of the path did not run: "
+                             f"{enc_launches}")
+    if gzip.decompress(enc_stream) != data:
+        raise AssertionError("stdlib gzip does not read back the encode")
+    back, back_len = pgzf.decompress_to_device(enc_stream, verify=True,
+                                               device="cuda")
+    live = (torch.arange(back.shape[1], device=dev)[None, :]
+            < back_len.to(torch.int64)[:, None])
+    if bytes(back[live].cpu().numpy()) != data:
+        raise AssertionError("the port's decode does not read back the "
+                             "encode")
+    del back, live
+    ratio = len(enc_stream) / len(data)
+    log(f"encode main path: {len(data)} bytes -> {len(enc_stream)} bytes "
+        f"(ratio {ratio:.6f}), read back by stdlib gzip and by "
+        f"decompress_to_device(verify=True)")
+
+    # 8. byte identity with the committed reference streams
+    refs = sorted(DATA.glob("pgzf_encode_*.pgz"))
+    if not refs:
+        raise AssertionError("no committed reference stream")
+    for path in refs:
+        ref = path.read_bytes()
+        plain = gzip.decompress(ref)
+        first = pgzf.index_members(ref)[0]
+        member = struct.unpack_from("<I", ref, first.end - 4)[0]
+        got = pgzf.compress(plain, member_size=member, device="cuda")
+        if got != ref:
+            raise AssertionError(f"compress differs from {path.name}")
+        log(f"{path.name}: {len(plain)} bytes at member_size {member} -> "
+            f"{len(ref)} bytes, byte-identical to the reference")
+
+    # 9. timing
+    n_dec = len(oracle)
     torch.cuda.reset_peak_memory_stats()
     chain_ms = cuda_ms(lambda: pgzf._run_sync_chain(g), 11)
     peak = torch.cuda.max_memory_allocated()
@@ -172,33 +302,81 @@ def main() -> None:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
     e2e_s = statistics.median(walls)
+
+    sym = torch.cat([
+        torch.where(b > 0, hist.length_symbol(a.clamp(3, 258)), a)[valid],
+        hist.DIST_BIN0 + hist.dist_symbol(b[valid & (b > 0)])])
     rows = [
+        # name, source, replaces, kernel, plain, library, bytes, reps
         ("sync_decode", "libflate_tpu_torch/csrc/sync_decode.cu",
          "libflate_tpu/ops/pallas_sync_decode.py:80",
          lambda: sd.sync_decode(*sd_args),
-         lambda: sd.sync_decode_plain(*sd_args), 20, 2),
+         lambda: sd.sync_decode_plain(*sd_args), None,
+         nbytes(*sd_args[:5], toks), 20, 2),
         ("rank_emit_src", "libflate_tpu_torch/csrc/rank.cu",
          "libflate_tpu/ops/pallas_rank.py:150",
          lambda: rank.rank_emit_src(*rk_args),
-         lambda: rank.rank_emit_src_plain(*rk_args), 20, 3),
+         lambda: rank.rank_emit_src_plain(*rk_args), None,
+         nbytes(*rk_args[:4], src, lit), 20, 3),
         ("resolve_bytes", "libflate_tpu_torch/csrc/resolve.cu",
          "libflate_tpu/ops/pallas_expand.py:74",
          lambda: expand.resolve_bytes(src, lit),
-         lambda: expand.resolve_bytes_plain(src, lit), 20, 3),
+         lambda: expand.resolve_bytes_plain(src, lit), None,
+         nbytes(src, lit, out), 20, 3),
+        ("sort_keys", "libflate_tpu_torch/csrc/match.cu",
+         "libflate_tpu/ops/pallas_sort.py:66",
+         lambda: sm.sort_keys(keys), lambda: sm.sort_keys_plain(keys),
+         lambda: torch.sort(keys, dim=1, stable=True),
+         nbytes(keys, sk, sp), 10, 3),
+        ("scan_emit", "libflate_tpu_torch/csrc/match.cu",
+         "libflate_tpu/ops/pallas_sort.py:212",
+         lambda: sm.scan_emit(sk, sp, blocks),
+         lambda: sm.scan_emit_plain(sk, sp, blocks), None,
+         nbytes(sk, sp, blocks, cand, m4), 10, 3),
+        ("chunk_exits", "libflate_tpu_torch/csrc/parse.cu",
+         "libflate_tpu/ops/pallas_parse.py:57",
+         lambda: parse.chunk_exits(jump),
+         lambda: parse.chunk_exits_plain(jump), None,
+         nbytes(jump, ex), 10, 2),
+        ("walk_emit", "libflate_tpu_torch/csrc/parse.cu",
+         "libflate_tpu/ops/pallas_parse.py:143",
+         lambda: parse.walk_emit(jump, tok, ex, pcap),
+         lambda: parse.walk_emit_plain(jump, tok, ex, pcap), None,
+         nbytes(jump, tok, ex, slots, ovf), 10, 2),
+        ("token_hist", "libflate_tpu_torch/csrc/fields.cu",
+         "libflate_tpu/ops/pallas_hist.py:46",
+         lambda: hist.token_hist(a, b, valid),
+         lambda: hist.token_hist_plain(a, b, valid),
+         lambda: torch.bincount(sym, minlength=hist.BINS),
+         nbytes(a, b, valid, bins), 20, 3),
+        ("token_fields", "libflate_tpu_torch/csrc/fields.cu",
+         "libflate_tpu/ops/pallas_fields.py:120",
+         lambda: fields.token_fields(a_h, b, tables),
+         lambda: fields.token_fields_plain(a_h, b, tables), None,
+         nbytes(a_h, b, tables, *fv), 20, 3),
+        ("pack_stitch", "libflate_tpu_torch/csrc/pack.cu",
+         "libflate_tpu/ops/pallas_pack.py:61",
+         lambda: pack.pack_stitch(values, widths, cstarts, w_out),
+         lambda: pack.pack_stitch_plain(values, widths, cstarts, w_out),
+         None, nbytes(values, widths, cstarts, words), 20, 3),
     ]
     summary = []
-    for kname, source, replaces, kfn, pfn, reps, preps in rows:
+    for kname, source, replaces, kfn, pfn, lfn, moved, reps, preps in rows:
         ms = cuda_ms(kfn, reps)
         plain_ms = cuda_ms(pfn, preps)
+        lib_ms = cuda_ms(lfn, reps) if lfn is not None else None
+        bound = moved / HBM_BYTES_PER_MS
         summary.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kname],
                         "max_abs_err": errs[kname], "ms": ms,
-                        "plain_ms": plain_ms})
-        log(f"{kname}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.3f} GB/s of "
-            f"plaintext), plain {plain_ms:.4f} ms "
-            f"({nbytes / plain_ms / 1e6:.3f} GB/s) [{card_line}]")
-    log(f"device chain (sync decode -> expand -> CRC f-values): "
-        f"{chain_ms:.4f} ms median of 11, {nbytes / chain_ms / 1e6:.3f} "
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": "bytes", "library_ms": lib_ms})
+        log(f"{kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({moved} bytes), library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+            f"[{card_line}]")
+    log(f"decode device chain (sync decode -> expand -> CRC f-values): "
+        f"{chain_ms:.4f} ms median of 11, {n_dec / chain_ms / 1e6:.3f} "
         f"GB/s of plaintext, peak {peak / 2**20:.0f} MiB [{card_line}]")
     stages = {
         "sync_decode": lambda: sd.sync_decode(*sd_args),
@@ -209,12 +387,74 @@ def main() -> None:
         "crc32_f_rows (torch glue)": lambda: checksum.crc32_f_rows(out),
     }
     breakdown = {k: cuda_ms(fn, 5) for k, fn in stages.items()}
-    log("chain stages, ms: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in breakdown.items())
-        + f" [{card_line}]")
+    log("decode chain stages, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in breakdown.items()) + f" [{card_line}]")
     log(f"end to end decompress_to_device(verify=True), host staging "
         f"included: {e2e_s * 1e3:.2f} ms median of 5, "
-        f"{nbytes / e2e_s / 1e9:.3f} GB/s of plaintext [{card_line}]")
+        f"{n_dec / e2e_s / 1e9:.3f} GB/s of plaintext [{card_line}]")
+
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms = cuda_ms(lambda: pipeline.encode_batch(blocks, nv, 256), 5)
+    enc_peak = torch.cuda.max_memory_allocated()
+    enc_stages = {
+        "prefix_keys (glue)": lambda: sm.prefix_keys(blocks),
+        "sort_keys": lambda: sm.sort_keys(keys),
+        "scan_emit": lambda: sm.scan_emit(sk, sp, blocks),
+        "lengths_stage (glue)": lambda: pipeline.lengths_stage(
+            blocks, nv, cand, m4),
+        "parse_inputs (glue)": lambda: parse.parse_inputs(
+            blocks, nv, cand2, lens),
+        "chunk_exits": lambda: parse.chunk_exits(jump),
+        "walk_emit": lambda: parse.walk_emit(jump, tok, ex, pcap),
+        "shared_stats (hist + host codes)": lambda: pipeline.shared_stats(
+            a, b, valid),
+        "token_fields": lambda: fields.token_fields(a_h, b, tables),
+        "shared_assemble (glue)": lambda: pipeline.shared_assemble(
+            *fv, *header, int(stats[2][256]), int(stats[3][256])),
+        "chunk_starts (glue)": lambda: pack.chunk_starts(widths),
+        "pack_stitch": lambda: pack.pack_stitch(values, widths, cstarts,
+                                                w_out),
+        "sync_offsets_padded (glue)": lambda: pipeline.sync_offsets_padded(
+            widths[:, :-fpad or None], valid, 256, pcap),
+        "crc32_f_rows (glue)": lambda: checksum.crc32_f_rows(blocks),
+    }
+    enc_breakdown = {k: cuda_ms(fn, 5) for k, fn in enc_stages.items()}
+    log(f"encode device chain per batch (128 x 64 KiB = 8 MiB, "
+        f"encode_batch): {batch_ms:.4f} ms median of 5, "
+        f"{n_b * ms_enc / batch_ms / 1e6:.3f} GB/s of input, peak "
+        f"{enc_peak / 2**20:.0f} MiB [{card_line}]")
+    log("encode batch stages, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in enc_breakdown.items())
+        + f" [{card_line}]")
+
+    device_s = [0.0]
+    real_encode_batch = pgzf.encode_batch
+
+    def timed_encode_batch(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_encode_batch(*args, **kw)
+        torch.cuda.synchronize()
+        device_s[0] += time.perf_counter() - t0
+        return res
+
+    pgzf.encode_batch = timed_encode_batch
+    walls, dev_parts = [], []
+    for _ in range(3):
+        device_s[0] = 0.0
+        t = time.perf_counter()
+        pgzf.compress(data, member_size=ms_enc, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        dev_parts.append(device_s[0])
+    pgzf.encode_batch = real_encode_batch
+    i_med = walls.index(statistics.median(walls))
+    enc_s, enc_dev = walls[i_med], dev_parts[i_med]
+    log(f"end to end compress(64 MiB, device='cuda'): {enc_s * 1e3:.2f} ms "
+        f"median of 3, {len(data) / enc_s / 1e9:.3f} GB/s of input; "
+        f"encode_batch calls {enc_dev * 1e3:.2f} ms, host staging and "
+        f"assembly {(enc_s - enc_dev) * 1e3:.2f} ms; ratio {ratio:.6f} "
+        f"[{card_line}]")
 
     print(json.dumps({"kernels": summary}))
     print(card_line)

@@ -1,18 +1,28 @@
-"""libflate_tpu_torch — PyTorch + CUDA port of libflate_tpu's device half.
+"""libflate_tpu_torch — PyTorch + CUDA port of libflate_tpu's device path.
 
 The JAX package ``libflate_tpu`` is the reference; this package runs the
-same device decode on an NVIDIA Hopper card (sm_90a).  Its host half
-(container parsing, the native C++ engine, the LS sync index) is the
-reference's own JAX-free code, imported as is.  The device half mirrors
-``libflate_tpu/ops`` file by file:
+PGZF device encode and the sync-indexed device decode on an NVIDIA
+Hopper card (sm_90a).  It imports nothing of ``libflate_tpu``: the host
+pieces it needs (gzip headers, the LF/LS subfields, block-header
+parsing, stored blocks, DEFLATE constants, CRC operators) are its own
+copies.  The layout mirrors the reference file by file:
 
-    formats/pgzf.py          decompress_to_device (sync-indexed PGZF)
-    ops/sync_decode.py       LS-chunk symbol decode    csrc/sync_decode.cu
+    formats/pgzf.py          compress, decompress_to_device
+    formats/gzip.py          gzip member headers
+    ops/sort_match.py        content-sort LZ77 candidates  csrc/match.cu
+    ops/pipeline.py          batch encode (torch glue)
+    ops/parse.py             greedy parse + emit           csrc/parse.cu
+    ops/hist.py              batch symbol histogram        csrc/fields.cu
+    ops/fields.py            token (value, width) fields   csrc/fields.cu
+    ops/pack.py              bit pack into member rows     csrc/pack.cu
+    ops/huffman.py, ops/deflate_encode.py   codes and headers (host)
+    ops/sync_decode.py       LS-chunk symbol decode        csrc/sync_decode.cu
     ops/device_expand.py     expand_members (torch glue)
-    ops/rank.py              rank + mod-collapse       csrc/rank.cu
-    ops/expand.py            pointer chase to bytes    csrc/resolve.cu
+    ops/rank.py              rank + mod-collapse           csrc/rank.cu
+    ops/expand.py            pointer chase to bytes        csrc/resolve.cu
     ops/checksum.py          member CRC f-values (GF(2) matmul)
-    ops/huffman.py, ops/tables.py   decode tables and DEFLATE constants
+    serial/deflate.py        stored blocks, block-header parser
+    spec/constants.py, utils/checksum.py   format constants, CRC operators
 
 Every kernel wrapper takes CPU tensors to the kernel's plain PyTorch
 version and CUDA tensors to the kernel; it never falls back from one to
@@ -24,7 +34,7 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("convert", "formats", "ops")
+_SUBMODULES = ("convert", "formats", "ops", "serial", "spec", "utils")
 
 
 def require_cuda():

@@ -1,9 +1,10 @@
 """Build-at-first-use of the CUDA kernels (counterpart of the native
 engine loader, ``libflate_tpu/native/__init__.py``).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, named by a hash of the sources,
-under ``build/torch_kernels/`` at the repository root, and loaded with
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all at once, and the objects are linked into one shared library with a
+plain C interface, named by a hash of the sources, under
+``build/torch_kernels/`` at the repository root, and loaded with
 ``ctypes``.  Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 A failed build or load raises too: nothing falls back to the CPU.
@@ -22,13 +23,20 @@ _CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 # C signatures: "p" pointer or stream (c_void_p), "i" int, "q" int64
 _SIGNATURES = {
     "lf_sync_decode": "pqpppppipiip",
     "lf_rank_emit_src": "pppppiiip",
     "lf_resolve_bytes": "pppiip",
+    "lf_sort_keys": "ppppppiip",
+    "lf_scan_emit": "pppppiiiiip",
+    "lf_chunk_exits": "ppiip",
+    "lf_walk_emit": "pppppiiip",
+    "lf_token_hist": "pppqpp",
+    "lf_token_fields": "pppqppppp",
+    "lf_pack_stitch": "ppppiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 
@@ -58,22 +66,44 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the kernels unless the hashed library already exists."""
+    """Compile the kernels unless the hashed library already exists: one
+    nvcc process per source, started together, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in sources():
+        if src.suffix != ".cu":
+            continue
+        obj = so.with_name(f"{so.stem}.{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+               "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    failed, log = [], []
+    for src, _obj, proc in jobs:
+        out, err = proc.communicate()
+        log.append(f"{src.name}:\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
+                           + "\n".join(log))
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
+        print("\n".join(log), flush=True)
+    tmp = so.with_suffix(f".{tag}")
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *(str(obj) for _s, obj, _p in jobs)],
+                         capture_output=True, text=True)
+    for _s, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{res.stdout}\n{res.stderr}")
-    if verbose and (res.stdout or res.stderr):
-        print(res.stdout + res.stderr, flush=True)
     os.replace(tmp, so)
     return so
 

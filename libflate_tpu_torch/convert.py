@@ -1,5 +1,8 @@
-"""Carry the reference's decode state across to the port.
+"""Carry the reference's state across to the port.
 
+:func:`from_reference_batch` turns the reference's per-batch encode
+intermediates (numpy arrays) into the port's tensors, so each encode
+stage can be fed exactly the reference's input.
 :func:`from_reference_group` turns one group dict of the reference's
 ``libflate_tpu.formats.pgzf._prepare_sync_device`` (numpy or jax arrays)
 into the dict that :func:`libflate_tpu_torch.formats.pgzf._run_sync_chain`
@@ -44,3 +47,29 @@ def from_reference_group(prep: dict, device="cpu") -> dict:
                                 "member_cap", "isizes", "crcs_expected",
                                 "member0")},
     }
+
+
+#: encode intermediates by name -> the dtype the port's stages take
+_BATCH_DTYPES = {"blocks": torch.uint8, "n_valid": torch.int32,
+                 "cand": torch.int32, "m": torch.int32,
+                 "lengths": torch.int32, "a": torch.int32,
+                 "b": torch.int32, "valid": torch.bool}
+
+
+def from_reference_batch(arrays: dict, device="cpu") -> dict:
+    """Reference encode intermediates -> port tensors on ``device``.
+
+    Takes any of ``blocks`` (B, n), ``n_valid`` (B,), the matcher's
+    ``cand`` and ``m``, ``lengths``, the padded tokens ``a``, ``b`` and
+    ``valid`` (B, M), and the shared tables ``lit_rev``, ``lit_w``,
+    ``dist_rev``, ``dist_w``; the tables become the one ``tables`` operand
+    of ``ops/fields.token_fields``.
+    """
+    from .ops.fields import field_tables
+    out = {k: torch.from_numpy(np.array(v)).to(device, _BATCH_DTYPES[k])
+           for k, v in arrays.items() if k in _BATCH_DTYPES}
+    names = ("lit_rev", "lit_w", "dist_rev", "dist_w")
+    if all(k in arrays for k in names):
+        out["tables"] = field_tables(*(np.asarray(arrays[k]) for k in names),
+                                     device)
+    return out

@@ -1,31 +1,143 @@
-"""PGZF device decode (counterpart of ``libflate_tpu/formats/pgzf.py``:
-``decompress_to_device`` (``:752-825``), ``_prepare_sync_device``
-(``:973-1079``), ``_run_sync_chain`` (``:1082``) and ``_sync_to_plain``
-(``:1116-1151``)).
+"""PGZF on the device (counterpart of ``libflate_tpu/formats/pgzf.py``).
 
-The host half — member index, LS sync-index parsing, chunk spans, the
-native header parser — is the reference's own JAX-free code.  The device
-half is this package's: sync decode -> expand_members -> CRC f-values, on
-the device the caller names.  Streams without the LS index (the
-reference's speculative and foreign-stream bridges) are not ported yet.
+Encode: :func:`compress` (``_compress_device``, ``:241-418``) cuts the
+input into members, encodes batches of 128 on the device
+(``ops/pipeline.encode_batch``) and assembles the members on the host:
+bit splice, member CRC, the "LF" member-size and "LS" sync-index header
+subfields, and the stored fallback for incompressible members.
+
+Decode: :func:`decompress_to_device` (``:752-825``) with
+``_prepare_sync_device`` (``:973-1079``), ``_run_sync_chain`` (``:1082``)
+and ``_sync_to_plain`` (``:1116-1151``): sync decode -> expand_members ->
+CRC f-values.  Streams without the LS index (the reference's speculative
+and foreign-stream bridges) are not ported yet.
+
+The host helpers — member index, LS sync index, chunk spans, member
+header — are the port's own copies of the reference's (``:38-74``,
+``:76-101``, ``:126-144``, ``:425-449``).
 """
 from __future__ import annotations
 
 import struct
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from libflate_tpu.formats import gzip as fgzip
-from libflate_tpu.formats.pgzf import (_chunk_spans, _parse_sync,
-                                       index_members)
-from libflate_tpu.serial.deflate import DeflateError
-from libflate_tpu.spec import constants as C
-
 from ..ops.checksum import crc32_f_rows, crc32_from_padded_f
+from ..ops.deflate_encode import splice_blocks_host
 from ..ops.device_expand import expand_members
 from ..ops.huffman import decode_table
-from ..ops.sync_decode import stream_words, sync_decode
+from ..ops.pipeline import encode_batch
+from ..ops.sync_decode import SYNC_TOKENS, stream_words, sync_decode
+from ..serial.deflate import DeflateError, deflate_stored, \
+    parse_block_headers
+from ..spec import constants as C
+from . import gzip as fgzip
+
+INDEX_ID = b"LF"
+SYNC_ID = b"LS"
+DEFAULT_MEMBER_SIZE = 64 * 1024
+DEV_BATCH = 128           # members per device encode batch: one shared table
+
+
+@dataclass
+class MemberRef:
+    start: int          # byte offset of the member
+    end: int            # byte offset one past the member
+    body: int           # byte offset of the DEFLATE payload
+
+
+def _member_header(member_len_placeholder: int, mtime: int = 0,
+                   sync_payload: bytes | None = None) -> bytes:
+    """Indexed member header: LF (member size) first, at a fixed offset
+    (``_SIZE_OFFSET``) so the member can be patched in place, then the
+    optional LS sync index."""
+    subs = [fgzip.ExtraSubField(INDEX_ID,
+                                struct.pack("<I", member_len_placeholder))]
+    if sync_payload is not None:
+        subs.append(fgzip.ExtraSubField(SYNC_ID, sync_payload))
+    return fgzip.Header(mtime=mtime, os=C.GZIP_OS_UNIX,
+                        extra=fgzip.ExtraField(subs)).encode()
+
+
+_HEADER_LEN = len(_member_header(0))
+_SIZE_OFFSET = _HEADER_LEN - 4          # the u32 ends the LF subfield
+
+
+def _sync_payload(k: int, n_tokens: int, offsets: np.ndarray):
+    """The "LS" subfield: u8 version=1 | u8 flags=0 | u16 K | u32
+    n_tokens | u32 first_bit | u16 n_chunks | u16 deltas[n_chunks-1]
+    (LE), the deltas being bit distances between chunk starts.  None when
+    a delta does not fit 16 bits."""
+    n_chunks = max(0, -(-n_tokens // k))
+    first_bit = int(offsets[0])
+    deltas64 = (np.diff(offsets[:n_chunks]).astype(np.int64)
+                if n_chunks > 1 else np.zeros(0, np.int64))
+    if len(deltas64) and int(deltas64.max()) > 0xFFFF:
+        return None
+    return (struct.pack("<BBHIIH", 1, 0, k, n_tokens, first_bit, n_chunks)
+            + deltas64.astype("<u2").tobytes())
+
+
+def _parse_sync(hdr: "fgzip.Header"):
+    """Parse an LS subfield; None when absent, foreign or malformed."""
+    if hdr.extra is None:
+        return None
+    for sub in hdr.extra.subfields:
+        if sub.id != SYNC_ID or len(sub.data) < 14:
+            continue
+        ver, _flags, k, n_tokens, first_bit, n_chunks = struct.unpack_from(
+            "<BBHIIH", sub.data, 0)
+        if ver != 1 or k == 0 or k > 1024:
+            return None
+        if len(sub.data) != 14 + 2 * max(0, n_chunks - 1):
+            return None
+        deltas = np.frombuffer(sub.data, "<u2", offset=14)
+        return k, n_tokens, first_bit, n_chunks, deltas
+    return None
+
+
+def _chunk_spans(sync, ref: MemberRef):
+    """Validated (starts, ends, counts) int64 arrays of one member's LS
+    chunks: bit offsets relative to the body and tokens per chunk.
+    Raises ImportError on a corrupt or empty index."""
+    k, n_tokens, first_bit, n_chunks, deltas = sync
+    body_bits = (ref.end - 8 - ref.body) * 8
+    if n_chunks <= 0 or n_tokens <= 0 or n_chunks != -(-n_tokens // k):
+        raise ImportError("empty or inconsistent sync index")
+    starts = np.zeros(n_chunks, np.int64)
+    starts[0] = first_bit
+    if n_chunks > 1:
+        starts[1:] = first_bit + np.cumsum(deltas.astype(np.int64))
+    ends = np.empty(n_chunks, np.int64)
+    ends[:-1] = starts[1:]
+    ends[-1] = body_bits
+    if (ends < starts).any() or starts[-1] >= body_bits:
+        raise ImportError("corrupt sync index")
+    counts = np.minimum(k, n_tokens - k * np.arange(n_chunks, dtype=np.int64))
+    return starts, ends, counts
+
+
+def index_members(data: bytes) -> list[MemberRef] | None:
+    """Walk the LF index without decoding; None if any member lacks it."""
+    refs = []
+    pos = 0
+    while pos < len(data):
+        try:
+            hdr, body = fgzip.Header.decode(data, pos)
+        except (fgzip.GzipError, EOFError):
+            return None
+        size = None
+        if hdr.extra is not None:
+            for sub in hdr.extra.subfields:
+                if sub.id == INDEX_ID and len(sub.data) == 4:
+                    (size,) = struct.unpack("<I", sub.data)
+        if size is None or size <= 0 or pos + size > len(data):
+            return None
+        refs.append(MemberRef(pos, pos + size, body))
+        pos += size
+    return refs
 
 
 def _device(device) -> torch.device:
@@ -36,6 +148,94 @@ def _device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _check_member_size(member_size: int) -> None:
+    if (not isinstance(member_size, int) or member_size % 1024
+            or not 1024 <= member_size <= DEFAULT_MEMBER_SIZE):
+        raise ValueError(
+            f"member_size must be a multiple of 1024 up to 65536, got "
+            f"{member_size!r}: other sizes take the reference's XLA LCP, "
+            "which is not ported yet")
+
+
+def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
+             device="cuda") -> bytes:
+    """Compress into an indexed, sync-indexed multi-member gzip stream.
+
+    Byte-identical to the reference's device encode
+    (``pgzf.compress(data, member_size, engine="tpu")`` with its default
+    sort matcher) for ``member_size`` a multiple of 1024 up to 65536;
+    other sizes raise ValueError.  Members are encoded in batches of 128
+    sharing one Huffman code; a batch whose parse overflows the 384-slot
+    chunk budget is encoded again at 512; a member whose coded body is
+    not smaller than stored blocks is written stored (no LS index).
+    Any stock gzip reader decodes the result.
+
+    Runs on ``device`` ("cuda" unless the caller asks for "cpu", which
+    runs every kernel's plain version); raises RuntimeError for "cuda"
+    without CUDA, DeflateError if a coded field breaks the pack
+    invariant (an internal error).
+    """
+    _check_member_size(member_size)
+    dev = _device(device)
+    data = bytes(data)
+    raw = np.frombuffer(data, np.uint8)
+    n_members = max(1, -(-len(raw) // member_size))
+    n_batches = -(-n_members // DEV_BATCH)
+    n_valid = np.zeros(n_batches * DEV_BATCH, np.int32)
+    n_valid[:n_members] = np.minimum(
+        member_size, len(raw) - member_size * np.arange(n_members))
+    bodies: list[bytes] = []
+    crcs, cnts, offs = [], [], []
+    for g in range(n_batches):
+        sl = slice(g * DEV_BATCH, (g + 1) * DEV_BATCH)
+        rows = np.zeros((DEV_BATCH, member_size), np.uint8)
+        chunk = raw[g * DEV_BATCH * member_size:
+                    (g + 1) * DEV_BATCH * member_size]
+        rows.reshape(-1)[:len(chunk)] = chunk
+        blocks = torch.from_numpy(rows).to(dev)
+        nv = torch.from_numpy(n_valid[sl]).to(dev)
+        out = encode_batch(blocks, nv, SYNC_TOKENS)
+        if bool(out["overflow"].any()):
+            # a literal-dense chunk blew the 384-slot budget: its words
+            # are incomplete; 512 slots always fit a 512-position chunk
+            out = encode_batch(blocks, nv, SYNC_TOKENS, cap=512)
+        if bool(out["wide"].any()):
+            raise DeflateError(
+                "internal: field width exceeds the pack kernel's "
+                "slot-depth invariant (single field > 28 bits or "
+                "adjacent pair > 38)")
+        bits = out["bits"].cpu().numpy()
+        words = out["words"].cpu().numpy().view(np.uint32)
+        for i in range(min(DEV_BATCH, n_members - g * DEV_BATCH)):
+            bodies.append(splice_blocks_host(words[i:i + 1],
+                                             bits[i:i + 1]))
+        crcs.append(crc32_from_padded_f(out["crc_f"].cpu().numpy(),
+                                        n_valid[sl], member_size))
+        cnts.append(out["n_tokens"].cpu().numpy())
+        offs.extend(out["offsets"].cpu().numpy())
+    crcs_all, cnts_all = np.concatenate(crcs), np.concatenate(cnts)
+
+    out_b = bytearray()
+    for i in range(n_members):
+        body, nv_i = bodies[i], int(n_valid[i])
+        sync_payload = None
+        if int(cnts_all[i]) > 0:
+            sync_payload = _sync_payload(SYNC_TOKENS, int(cnts_all[i]),
+                                         offs[i])
+        stored_size = nv_i + 5 * max(1, -(-nv_i // C.MAX_STORED_BLOCK))
+        if len(body) >= stored_size:
+            # incompressible member: stored blocks beat entropy coding
+            body = deflate_stored(
+                data[i * member_size:i * member_size + nv_i])
+            sync_payload = None
+        member = bytearray(_member_header(0, sync_payload=sync_payload))
+        member += body
+        member += struct.pack("<II", int(crcs_all[i]), nv_i)
+        struct.pack_into("<I", member, _SIZE_OFFSET, len(member))
+        out_b += member
+    return bytes(out_b)
 
 
 def decompress_to_device(data: bytes, verify: bool = False,
@@ -49,8 +249,8 @@ def decompress_to_device(data: bytes, verify: bool = False,
     member's CRC-32, computed from the decoded rows, against its trailer.
 
     Raises ImportError for a stream this path does not take (no LS sync
-    index, not shared-table, no native header parser), DeflateError for
-    a corrupt back-reference, GzipError for a CRC mismatch, and
+    index, not shared-table), DeflateError for a malformed block header
+    or a corrupt back-reference, GzipError for a CRC mismatch, and
     RuntimeError for ``device="cuda"`` without CUDA.
     """
     dev = _device(device)
@@ -83,16 +283,6 @@ def decompress_to_device(data: bytes, verify: bool = False,
                        for p in plains]), lengths)
 
 
-def decompress_host(data: bytes) -> bytes:
-    """Plaintext from the reference's threaded native (C++) engine: the
-    JAX-free host oracle for :func:`decompress_to_device`."""
-    from libflate_tpu import native
-    from libflate_tpu.formats.pgzf import decompress
-    if not native.available():
-        raise ImportError("the native engine did not build")
-    return decompress(data, engine="native", verify=True)
-
-
 def _prepare_sync_device(data: bytes, device) -> list[dict]:
     """Host-side staging for the device decode chain.
 
@@ -119,15 +309,8 @@ def _prepare_sync_device(data: bytes, device) -> list[dict]:
     if any(s is None for s in syncs):
         raise ImportError("stream is not fully sync-indexed")
 
-    from libflate_tpu import native
-    if not native.available():
-        raise ImportError("needs the native header parser")
-    bodies = b"".join(data[r.body:r.end - 8] for r in refs)
-    offs_b = np.zeros(n_all + 1, np.uint64)
-    for i, r in enumerate(refs):
-        offs_b[i + 1] = offs_b[i] + (r.end - 8 - r.body)
-    lit_ls, dist_ls, starts64, flags = native.parse_dyn_headers(
-        bodies, offs_b)
+    lit_ls, dist_ls, starts64, flags = parse_block_headers(
+        [data[r.body:r.end - 8] for r in refs])
     if not ((flags == 5).all() and int(lit_ls.max()) <= 12
             and int(dist_ls.max()) <= 8):
         raise ImportError("not a sync-decodable shared-table stream")

@@ -20,8 +20,8 @@ import functools
 import numpy as np
 import torch
 
-from libflate_tpu.utils.checksum import (CRC_TABLE, _gf2_matrix_times,
-                                         _shift_operator, gf2_matrix_inverse)
+from ..utils.checksum import (CRC_TABLE, _gf2_matrix_times, _shift_operator,
+                              gf2_matrix_inverse)
 
 CHUNK = 64                        # bytes per CRC chunk (512 bits)
 #: bytes of float32 bit matrix per slice of members (bounds peak memory)

@@ -1,19 +1,84 @@
-"""Flat Huffman decode tables (counterpart of ``decode_table``,
-``libflate_tpu/ops/huffman.py:155``, with its ``_bit_reverse`` (``:145``)).
+"""Huffman code construction on the host, in numpy (counterpart of
+``libflate_tpu/ops/huffman.py``): ``package_merge_lengths`` (``:40``),
+``canonical_codes_jax`` (``:108``), ``reverse_codes_jax`` (``:133``) and
+``decode_table`` (``:155``) with its ``_bit_reverse`` (``:145``).
 
-Tables are at most 4096 entries, so this is host glue in numpy; the
-result goes to the caller's device as an int32 tensor.  The construction
-is the reference's, index by index, so invalid (over-subscribed) length
-sets give the same table too.  The reference also computes the canonical
-codes (``canonical_codes_jax``) but never reads them; the table needs
-only the first code of each length.
+Alphabets are at most 288 symbols and tables at most 4096 entries, so
+this is host glue; results go to the caller's device as int32 tensors
+where a kernel reads them.  Every construction is the reference's step by
+step — the same stable sorts, so equal frequencies break ties the same
+way, and the same single-symbol rule — so the code lengths and codes are
+identical symbol for symbol, and invalid (over-subscribed) length sets
+give the same decode table too.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from libflate_tpu.spec.constants import MAX_BITWIDTH
+from ..spec.constants import MAX_BITWIDTH
+
+_INF = 1 << 30
+
+
+def package_merge_lengths(freqs, limit: int = MAX_BITWIDTH) -> np.ndarray:
+    """Optimal code lengths <= ``limit`` for (N,) frequencies (unused
+    symbols get 0; a single active symbol gets 1), int32."""
+    freqs = np.asarray(freqs, np.int64)
+    n = freqs.shape[0]
+    s = 2 * n
+    active = freqs > 0
+    n_active = int(active.sum())
+    leaf_w = np.sort(np.where(active, freqs, _INF))
+    is_leaf0 = np.concatenate([np.ones(n, np.int64), np.zeros(s, np.int64)])
+    items = np.concatenate([leaf_w, np.full(n, _INF, np.int64)])
+    level_stack = [np.concatenate([np.ones(n, np.int64),
+                                   np.zeros(n, np.int64)])]
+    for _ in range(limit - 1):
+        a, b = items[0::2], items[1::2]
+        ps = np.where((a >= _INF) | (b >= _INF), _INF,
+                      np.minimum(a + b, _INF))
+        pkg = np.concatenate([ps, np.full(s - ps.shape[0], _INF, np.int64)])
+        w = np.concatenate([leaf_w, pkg])
+        order = np.argsort(w, kind="stable")       # leaves win ties
+        items = w[order][:s]
+        level_stack.append(is_leaf0[order][:s])
+    idx = np.arange(s)
+    m = 2 * max(n_active - 1, 0)
+    cs = []
+    for is_leaf in reversed(level_stack):
+        c = int(np.where(idx < m, is_leaf, 0).sum())
+        cs.append(c)
+        m = 2 * (m - c)
+    rank_len = (np.arange(n)[None, :] < np.asarray(cs)[:, None]).sum(axis=0)
+    order = np.argsort(np.where(active, freqs, _INF), kind="stable")
+    lengths = np.zeros(n, np.int64)
+    lengths[order] = rank_len
+    lengths = np.where(active, lengths, 0)
+    lengths = np.where((n_active == 1) & active, 1, lengths)
+    return lengths.astype(np.int32)
+
+
+def canonical_codes(lengths) -> np.ndarray:
+    """Canonical (MSB-first) codes of (N,) code lengths, int32."""
+    lengths = np.asarray(lengths, np.int64)
+    one_hot = (lengths[:, None] == np.arange(1, MAX_BITWIDTH + 1)[None, :]
+               ).astype(np.int64)
+    firsts = _firsts(one_hot.sum(axis=0))
+    rank = np.cumsum(one_hot, axis=0) - one_hot
+    per_len_rank = (rank * one_hot).sum(axis=1)
+    first_of_len = (firsts[None, :] * one_hot).sum(axis=1)
+    return np.where(lengths > 0, first_of_len + per_len_rank,
+                    0).astype(np.int32)
+
+
+def reverse_codes(codes, lengths) -> np.ndarray:
+    """Each code bit-reversed within its own width (the LSB-first layout
+    the encoder writes), int32."""
+    lengths = np.asarray(lengths, np.int64)
+    rev = _bit_reverse(np.asarray(codes, np.int64), MAX_BITWIDTH)
+    return np.where(lengths > 0, rev >> np.maximum(MAX_BITWIDTH - lengths, 0),
+                    0).astype(np.int32)
 
 
 def _firsts(counts: np.ndarray) -> np.ndarray:

@@ -1,0 +1,192 @@
+"""The shared-table sync encode of one batch of members (counterpart of
+``libflate_tpu/ops/pipeline.py``: ``_lengths_stage`` (``:98-196``, the
+sort matcher's branch), ``_shared_stats`` (``:366``), ``_shared_header``
+(``:397``, inlined), ``_shared_tokens_kernel`` (``:428``),
+``_shared_assemble`` (``:412``), ``_pack_chunks_device`` (``:551``),
+``_sync_offsets_padded`` (``:638``), ``_sync_cols_tail`` (``:797``) and
+``_encode_batch_sync_cols`` (``:767``)).
+
+One batch runs, on the batch's device::
+
+    sort_keys -> scan_emit           (cand, m)       csrc/match.cu
+    lengths_stage                    match lengths   torch glue
+    chunk_exits -> walk_emit         padded tokens   csrc/parse.cu
+    token_hist                       batch counts    csrc/fields.cu
+    package-merge, codes, header     shared code     host, numpy
+    token_fields                     (value, width)  csrc/fields.cu
+    assemble, chunk starts           field rows      torch glue
+    pack_stitch                      member words    csrc/pack.cu
+    sync offsets, CRC f-values       LS index, CRC   torch glue
+
+The configuration is the reference's default: lazy matching, window
+32768, one candidate (no chain), lengths capped at 16 by the sort
+matcher's exact prefix (the LCP kernel is skipped), shared code lengths
+capped at 10 (litlen) and 8 (distance).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..spec import constants as C
+from .checksum import crc32_f_rows
+from .deflate_encode import (N_HEADER_FIELDS, N_LENGTH_FIELDS,
+                             dynamic_header_fields, encoder_tables)
+from .fields import field_tables, token_fields
+from .hist import shared_histograms
+from .huffman import package_merge_lengths
+from .pack import pack_chunks
+from .parse import CHUNK, parse_tokens
+from .sort_match import WINDOW, sort_candidates
+
+#: token slots per 512-position parse chunk; an overflowing batch is
+#: encoded again at 512, which a chunk can never overflow
+PARSE_CAP = 384
+#: shared-table litlen code-length cap (distance: min(this, 8))
+SHARED_MAX_LEN = 10
+#: field-width invariant of the reference's pack kernel column depth
+MAX_FIELD, MAX_PAIR = 28, 38
+
+
+def lengths_stage(blocks, n_valid, cand, m4):
+    """Candidate masking, run-length arithmetic, length clip and the lazy
+    heuristics; returns (cand, lengths), both (B, n) int32."""
+    bsz, n = blocks.shape
+    dev = blocks.device
+    idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    nv = n_valid.to(torch.int32)[:, None]
+    cand = torch.where(idx < nv, cand, -1)
+    lengths = torch.where(cand >= 0, m4, 0)
+    # dist-1 runs are exact: LCP(i, i-1) = run end - i
+    neq = torch.ones((bsz, n), dtype=torch.bool, device=dev)
+    neq[:, :-1] = blocks[:, 1:] != blocks[:, :-1]
+    first_neq = torch.flip(torch.cummin(torch.flip(
+        torch.where(neq, idx, n), [1]), dim=1).values, [1])
+    rle_len = (first_neq + 1 - idx).clamp(0, C.MAX_MATCH)
+    prev_eq = torch.zeros_like(neq)
+    prev_eq[:, 1:] = ~neq[:, :-1]
+    is_rle = (cand == idx - 1) & prev_eq
+    lengths = torch.where(is_rle, torch.maximum(lengths, rle_len), lengths)
+    lengths = torch.minimum(lengths, (nv - idx).clamp(min=0))
+    lengths = torch.where(lengths >= C.MIN_MATCH, lengths, 0)
+    # zlib's TOO_FAR, then one-step lazy matching
+    lengths = torch.where((lengths == 3) & (idx - cand > 4096), 0, lengths)
+    nxt = torch.zeros_like(lengths)
+    nxt[:, :-1] = lengths[:, 1:]
+    lengths = torch.where((nxt > lengths) & (lengths > 0), 0, lengths)
+    return cand.to(torch.int32), lengths.to(torch.int32)
+
+
+def tokenize(blocks, n_valid, cap: int = PARSE_CAP):
+    """(a, b, valid, n_tokens, overflow) padded token slots of a batch."""
+    cand, m4 = sort_candidates(blocks, window=WINDOW)
+    cand, lengths = lengths_stage(blocks, n_valid, cand, m4)
+    return parse_tokens(blocks, n_valid, cand, lengths, cap)
+
+
+def shared_stats(a, b, valid, max_len: int = SHARED_MAX_LEN):
+    """Batch histogram (device) -> one shared code set (host, numpy):
+    (lit_lengths, dist_lengths, lit_rev, lit_w, dist_rev, dist_w)."""
+    lit_freq, dist_freq = shared_histograms(a, b, valid)
+    lit_lengths = package_merge_lengths(lit_freq.cpu().numpy(), max_len)
+    dist_lengths = package_merge_lengths(dist_freq.cpu().numpy(),
+                                         min(max_len, 8))
+    lit_rev, lit_w = encoder_tables(lit_lengths)
+    dist_rev, dist_w = encoder_tables(dist_lengths)
+    return lit_lengths, dist_lengths, lit_rev, lit_w, dist_rev, dist_w
+
+
+def shared_assemble(f1v, f1w, f2v, f2w, hdrv, hdrw, lenv, lenw, eob_v,
+                    eob_w):
+    """Member field rows: header + code lengths + (f1, f2) per token slot
+    + end of block; (B, 339 + 2M + 1) values and widths."""
+    bsz, m = f1v.shape
+    dev = f1v.device
+
+    def rep(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=dev)[
+            None, :].expand(bsz, -1)
+
+    tokv = torch.stack([f1v, f2v], dim=2).reshape(bsz, 2 * m)
+    tokw = torch.stack([f1w, f2w], dim=2).reshape(bsz, 2 * m)
+    values = torch.cat([rep(hdrv), rep(lenv), tokv, rep([eob_v])], dim=1)
+    widths = torch.cat([rep(hdrw), rep(lenw), tokw, rep([eob_w])], dim=1)
+    return values, widths
+
+
+def shared_tokens(a, b, valid, lit_rev, lit_w, dist_rev, dist_w, header):
+    """Token fields of the padded slots (holes: a = -1) with the shared
+    tables, assembled into member field rows."""
+    tables = field_tables(lit_rev, lit_w, dist_rev, dist_w, a.device)
+    f1v, f1w, f2v, f2w = token_fields(torch.where(valid, a, -1), b, tables)
+    return shared_assemble(f1v, f1w, f2v, f2w, *header,
+                           int(lit_rev[C.END_OF_BLOCK]),
+                           int(lit_w[C.END_OF_BLOCK]))
+
+
+def sync_offsets_padded(widths, valid, k: int, cap: int):
+    """Bit offset of every k-th token of each member, (B, ceil(M/k) + 1)
+    int32; targets past the last token saturate at the end-of-tokens
+    offset.  A chunk's valid slots are a prefix of its ``cap`` slots, so
+    token t's slot comes from the per-chunk counts."""
+    f0 = N_HEADER_FIELDS + N_LENGTH_FIELDS
+    bsz, m = valid.shape
+    dev = valid.device
+    slots = -(-m // k) + 1
+    nc = m // cap
+    w64 = widths.to(torch.int64)
+    cum_c = torch.cumsum(valid.view(bsz, nc, cap).sum(dim=2), dim=1)
+    total = cum_c[:, -1:]
+    t = (k * torch.arange(slots, dtype=torch.int64, device=dev))[None, :]
+    c_j = torch.searchsorted(cum_c, t.expand(bsz, -1).contiguous(),
+                             right=True).clamp(max=nc - 1)
+    prev = torch.where(c_j > 0, torch.gather(cum_c, 1,
+                                             (c_j - 1).clamp(min=0)), 0)
+    r_j = (t - prev).clamp(0, cap)
+    cumw = torch.cumsum(w64[:, f0:f0 + 2 * m].view(bsz, nc, 2 * cap), dim=2)
+    chunk_bits = cumw[:, :, -1]
+    hdr = w64[:, :f0].sum(dim=1, keepdim=True)
+    chunk_start = hdr + torch.cumsum(chunk_bits, dim=1) - chunk_bits
+    flat = cumw.view(bsz, nc * 2 * cap)
+    within = torch.where(r_j > 0, torch.gather(
+        flat, 1, (c_j * 2 * cap + 2 * r_j - 1).clamp(0, nc * 2 * cap - 1)),
+        0)
+    off = torch.gather(chunk_start, 1, c_j) + within
+    end = hdr + chunk_bits.sum(dim=1, keepdim=True)
+    return torch.where(t >= total, end, off).to(torch.int32)
+
+
+def width_flags(widths) -> torch.Tensor:
+    """(B,) bool: a field wider than 28 bits or an adjacent pair wider
+    than 38 — the reference's pack invariant, an internal error."""
+    return ((widths > MAX_FIELD).any(dim=1)
+            | ((widths[:, :-1] + widths[:, 1:]) > MAX_PAIR).any(dim=1))
+
+
+def encode_batch(blocks: torch.Tensor, n_valid: torch.Tensor, k: int,
+                 cap: int = PARSE_CAP) -> dict:
+    """Shared-table sync encode of one batch (the reference's
+    ``_encode_batch_sync_cols`` + ``_sync_cols_tail``).
+
+    blocks: (B, n) uint8 member bytes, zero-padded; n_valid: (B,) int32.
+    Returns a dict of device tensors: ``words`` (B, W) int32 member bit
+    streams, ``bits`` and ``n_tokens`` (B,) int32, ``crc_f`` (B,) int32
+    raw CRC registers of the zero-padded rows, ``overflow`` and
+    ``wide`` (B,) bool, ``offsets`` (B, S) int32 sync offsets.
+    """
+    n = blocks.shape[1]
+    if n % CHUNK:
+        raise ValueError("encode_batch: member size must be a multiple "
+                         "of 512")
+    a, b, valid, cnt, ovf = tokenize(blocks, n_valid, cap)
+    (lit_lengths, dist_lengths, lit_rev, lit_w, dist_rev,
+     dist_w) = shared_stats(a, b, valid)
+    # BFINAL set: every member is one final block
+    header = dynamic_header_fields(lit_lengths, dist_lengths, 1)
+    values, widths = shared_tokens(a, b, valid, lit_rev, lit_w, dist_rev,
+                                   dist_w, header)
+    words, _starts, bits = pack_chunks(values, widths)
+    return {"words": words, "bits": bits, "n_tokens": cnt,
+            "crc_f": crc32_f_rows(blocks), "overflow": ovf,
+            "wide": width_flags(widths),
+            "offsets": sync_offsets_padded(widths, valid, k, cap)}

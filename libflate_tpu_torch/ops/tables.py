@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from libflate_tpu.spec import constants as C
+from ..spec import constants as C
 
 ROOT_BITS = 12               # widest litlen root the shared tables allow
 DIST_ROOT_BITS = 8           # distance root (30 symbols, codes <= 8 bits)

@@ -1,0 +1,84 @@
+"""CRC-32 GF(2) operators on the host (the port's copy of the parts of
+``libflate_tpu/utils/checksum.py`` that the device CRC path needs).
+
+CRC-32 is linear over GF(2): appending n zero bytes multiplies the
+register by a 32x32 bit matrix, kept here as 32 packed columns.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..spec.constants import CRC32_POLY
+
+
+def _make_crc_table() -> np.ndarray:
+    table = np.empty(256, dtype=np.uint32)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ (CRC32_POLY if (c & 1) else 0)
+        table[i] = c
+    return table
+
+
+CRC_TABLE = _make_crc_table()
+
+
+def _gf2_matrix_times(mat: np.ndarray, vec: int) -> int:
+    out = 0
+    i = 0
+    while vec:
+        if vec & 1:
+            out ^= int(mat[i])
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _gf2_matrix_square(mat: np.ndarray) -> np.ndarray:
+    return np.array([_gf2_matrix_times(mat, int(m)) for m in mat],
+                    dtype=np.uint64)
+
+
+def _gf2_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Column i of the result is ``a`` applied to ``b[i]``."""
+    return np.array([_gf2_matrix_times(a, int(col)) for col in b],
+                    dtype=np.uint64)
+
+
+def _shift_operator(nbytes: int) -> np.ndarray:
+    """32x32 GF(2) matrix multiplying a CRC register by x^(8*nbytes)."""
+    mat = np.zeros(32, dtype=np.uint64)         # multiply by x
+    mat[0] = CRC32_POLY
+    for i in range(1, 32):
+        mat[i] = 1 << (i - 1)
+    for _ in range(3):                          # x -> x^8: one zero byte
+        mat = _gf2_matrix_square(mat)
+    result = np.array([1 << i for i in range(32)], dtype=np.uint64)
+    n = nbytes
+    while n:
+        if n & 1:
+            result = _gf2_matmul(mat, result)
+        mat = _gf2_matrix_square(mat)
+        n >>= 1
+    return result
+
+
+def gf2_matrix_inverse(cols: np.ndarray) -> np.ndarray:
+    """Inverse of a 32x32 GF(2) matrix given as packed columns
+    (Gauss-Jordan; shift operators are always invertible)."""
+    n = 32
+    m = [[int(cols[j]) >> i & 1 for j in range(n)] for i in range(n)]
+    inv = [[int(i == j) for j in range(n)] for i in range(n)]
+    for col in range(n):
+        piv = next(r for r in range(col, n) if m[r][col])
+        m[col], m[piv] = m[piv], m[col]
+        inv[col], inv[piv] = inv[piv], inv[col]
+        for r in range(n):
+            if r != col and m[r][col]:
+                m[r] = [a ^ b for a, b in zip(m[r], m[col])]
+                inv[r] = [a ^ b for a, b in zip(inv[r], inv[col])]
+    out = np.zeros(n, dtype=np.uint64)
+    for j in range(n):
+        out[j] = sum(inv[i][j] << i for i in range(n))
+    return out

@@ -2,10 +2,12 @@
 
 The kernels compile only on a GPU host; here the tests pin what the
 Python side assumes about them: the sources it builds, the C signatures
-it declares to ctypes, and that a missing nvcc raises instead of falling
-back.
+it declares to ctypes, that each source compiles in its own nvcc
+process, and that a missing nvcc raises instead of falling back.
 """
+import pathlib
 import re
+import subprocess
 
 import pytest
 
@@ -27,8 +29,16 @@ def _c_signatures():
 
 
 def test_sources_are_the_three_kernels():
+    """The decode's three kernel sources are built (the encode's four
+    are pinned by the next test)."""
+    names = {s.name for s in _build.sources()}
+    assert {"rank.cu", "resolve.cu", "sync_decode.cu"} <= names
+
+
+def test_sources_are_the_seven_kernel_files():
     names = sorted(s.name for s in _build.sources())
-    assert names == ["rank.cu", "resolve.cu", "sync_decode.cu"]
+    assert names == ["fields.cu", "match.cu", "pack.cu", "parse.cu",
+                     "rank.cu", "resolve.cu", "sync_decode.cu"]
 
 
 def test_ctypes_signatures_match_the_c_entry_points():
@@ -48,3 +58,33 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    started = []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+            pathlib.Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+
+        def communicate(self):
+            assert len(started) == n_cu     # all started before any wait
+            return "", ""
+
+    def fake_run(cmd, **kw):
+        pathlib.Path(cmd[cmd.index("-o") + 1]).write_bytes(b"so")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    n_cu = sum(s.suffix == ".cu" for s in _build.sources())
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeProc)
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    so = _build.build()
+    assert so.read_bytes() == b"so" and so.parent == tmp_path
+    assert [c[c.index("-c") + 1] for c in started] == [
+        str(s) for s in _build.sources() if s.suffix == ".cu"]
+    assert not list(tmp_path.glob("*.o"))

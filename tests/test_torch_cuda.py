@@ -16,7 +16,10 @@ import pytest
 import torch
 
 from libflate_tpu_torch.formats import pgzf
-from libflate_tpu_torch.ops import device_expand, expand, rank
+from libflate_tpu_torch.ops import (deflate_encode, device_expand, expand,
+                                    fields, hist, pack, parse, pipeline,
+                                    rank)
+from libflate_tpu_torch.ops import sort_match as sm
 from libflate_tpu_torch.ops import sync_decode as sd
 
 pytestmark = pytest.mark.cuda
@@ -159,3 +162,103 @@ def test_decompress_to_device_on_cuda(dev, name, monkeypatch):
     assert bytes(out[live].cpu().numpy()) == gzip.decompress(data)
     assert not out[~live].any()
     np.testing.assert_array_equal(lengths.cpu().numpy() > 0, True)
+
+
+# ---- encode kernels --------------------------------------------------------
+
+
+def _eq(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def enc_batch(dev):
+    """128 members of 4 KiB: text, runs, a short member, random bytes."""
+    plain = gzip.decompress((DATA / "pgzf_sync_zipf_2m.pgz").read_bytes())
+    n = 4096
+    rows = np.frombuffer(plain[:128 * n], np.uint8).reshape(128, n).copy()
+    rng = np.random.default_rng(0)
+    rows[1] = np.repeat(rng.integers(0, 3, n // 64, dtype=np.uint8), 64)
+    rows[2, 1000:] = 0
+    rows[3] = rng.integers(0, 256, n, dtype=np.uint8)
+    nv = np.full(128, n, np.int32)
+    nv[2] = 1000
+    return (torch.from_numpy(rows).to(dev), torch.from_numpy(nv).to(dev))
+
+
+@pytest.mark.parametrize("n", [1024, 3072, 65536])
+def test_sort_keys_kernel_matches_plain(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    key = torch.randint(-2 ** 31, 2 ** 31 - 1, (4, n), generator=g,
+                        device=dev, dtype=torch.int64).to(torch.int32)
+    key[1] = key[1] % 5                     # many ties: stability
+    key = sm.prefix_keys(key.to(torch.uint8)) if n == 3072 else key
+    got = sm.sort_keys(key)
+    want = sm.sort_keys_plain(key)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+
+
+def test_match_kernels_match_plain(enc_batch):
+    blocks, _nv = enc_batch
+    keys = sm.prefix_keys(blocks)
+    sk, sp = sm.sort_keys(keys)
+    for got, want in zip(sm.scan_emit(sk, sp, blocks),
+                         sm.scan_emit_plain(sk, sp, blocks)):
+        _eq(got, want)
+
+
+@pytest.mark.parametrize("cap", [384, 512])
+def test_parse_kernels_match_plain(enc_batch, cap):
+    blocks, nv = enc_batch
+    cand, lengths = pipeline.lengths_stage(blocks, nv,
+                                           *sm.sort_candidates(blocks))
+    jump, tok = parse.parse_inputs(blocks, nv, cand, lengths)
+    ex = parse.chunk_exits(jump)
+    _eq(ex, parse.chunk_exits_plain(jump))
+    for got, want in zip(parse.walk_emit(jump, tok, ex, cap),
+                         parse.walk_emit_plain(jump, tok, ex, cap)):
+        _eq(got, want)
+
+
+def test_hist_fields_pack_kernels_match_plain(enc_batch):
+    blocks, nv = enc_batch
+    a, b, valid, _cnt, _ovf = pipeline.tokenize(blocks, nv)
+    _eq(hist.token_hist(a, b, valid), hist.token_hist_plain(a, b, valid))
+    stats = pipeline.shared_stats(a, b, valid)
+    tables = fields.field_tables(*stats[2:], blocks.device)
+    a_h = torch.where(valid, a, -1)
+    f = fields.token_fields(a_h, b, tables)
+    for got, want in zip(f, fields.token_fields_plain(a_h, b, tables)):
+        _eq(got, want)
+    header = deflate_encode.dynamic_header_fields(*stats[:2])
+    values, widths = pipeline.shared_assemble(
+        *f, *header, int(stats[2][256]), int(stats[3][256]))
+    pad = (-values.shape[1]) % pack.F_CH
+    values = torch.nn.functional.pad(values, (0, pad)).contiguous()
+    widths = torch.nn.functional.pad(widths, (0, pad)).contiguous()
+    starts, bits = pack.chunk_starts(widths)
+    w_out = (int(bits.max()) + 31) // 32 + 1
+    _eq(pack.pack_stitch(values, widths, starts[:, :-1], w_out),
+        pack.pack_stitch_plain(values, widths, starts[:, :-1], w_out))
+
+
+@pytest.mark.parametrize("name,member", [("pgzf_encode_small.pgz", 1024),
+                                         ("pgzf_encode_zipf_2m.pgz", 8192)])
+def test_compress_on_cuda_matches_reference_stream(dev, monkeypatch, name,
+                                                   member):
+    ref = (DATA / name).read_bytes()
+    plain = gzip.decompress(ref)
+    kernels = (sm.sort_keys, sm.scan_emit, parse.chunk_exits,
+               parse.walk_emit, hist.token_hist, fields.token_fields,
+               pack.pack_stitch)
+    before = [k.launches for k in kernels]
+    for mod, fn in ((sm, "sort_keys_plain"), (sm, "scan_emit_plain"),
+                    (parse, "chunk_exits_plain"), (parse, "walk_emit_plain"),
+                    (hist, "token_hist_plain"),
+                    (fields, "token_fields_plain"),
+                    (pack, "pack_stitch_plain")):
+        monkeypatch.setattr(mod, fn, lambda *a, **k: (_ for _ in ()).throw(
+            AssertionError("a CUDA tensor reached a plain version")))
+    assert pgzf.compress(plain, member_size=member, device="cuda") == ref
+    assert all(k.launches > b for k, b in zip(kernels, before))

@@ -1,0 +1,103 @@
+"""The port's histogram and token-field kernels (plain versions) vs the
+reference.
+
+* ``shared_histograms_pallas`` (Pallas interpret mode, once per module)
+  at 128 x 2048 token slots: the batch-global litlen/distance counts,
+  END_OF_BLOCK per member and the dummy-distance rule.
+* The token fields against the reference's XLA twin ``token_fields_xla``
+  called as ``_shared_tokens_xla`` calls it (``token_fields_pallas``
+  passes no interpret flag, so it cannot run on the CPU), hole slots
+  included.
+"""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from libflate_tpu_torch import convert  # noqa: E402
+from libflate_tpu_torch.ops import deflate_encode as de  # noqa: E402
+from libflate_tpu_torch.ops import fields, hist  # noqa: E402
+from libflate_tpu_torch.ops.huffman import package_merge_lengths  # noqa
+
+B, M = 128, 2048
+
+
+def _tokens(seed: int, matches: bool = True):
+    rng = np.random.default_rng(seed)
+    valid = rng.random((B, M)) < 0.8
+    valid[5] = False                          # an empty (padding) member
+    is_m = (rng.random((B, M)) < 0.4) & matches
+    a = np.where(is_m, rng.integers(3, 259, (B, M)),
+                 rng.integers(0, 256, (B, M)))
+    a[:, :3] = [3, 258, 257]                  # length-code corners
+    dist = np.where(rng.random((B, M)) < 0.5,
+                    rng.integers(1, 33, (B, M)),
+                    rng.integers(1, 32769, (B, M)))
+    dist[:, :4] = [1, 32768, 4, 5]
+    b = np.where(is_m, dist, 0)
+    a, b = np.where(valid, a, 0), np.where(valid, b, 0)
+    return a.astype(np.int32), b.astype(np.int32), valid
+
+
+@pytest.fixture(scope="module")
+def ref_hist():
+    cases = [_tokens(1), _tokens(2, matches=False)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LIBFLATE_PALLAS_INTERPRET", "1")
+        from libflate_tpu.ops.pallas_hist import shared_histograms_pallas
+        out = [tuple(map(np.asarray, shared_histograms_pallas(
+            *(jnp.asarray(x) for x in case)))) for case in cases]
+    return cases, out
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_shared_histograms_match_reference(ref_hist, which):
+    cases, out = ref_hist
+    t = convert.from_reference_batch(dict(zip("a b valid".split(),
+                                              cases[which])))
+    lit, dist = hist.shared_histograms(t["a"], t["b"], t["valid"])
+    np.testing.assert_array_equal(lit.numpy(), out[which][0])
+    np.testing.assert_array_equal(dist.numpy(), out[which][1])
+    if which == 1:                            # no match: the dummy code
+        assert dist.tolist() == [1] + [0] * 29
+
+
+def test_symbol_arithmetic_matches_the_tables():
+    from libflate_tpu_torch.spec import constants as C
+    ln = torch.arange(3, 259)
+    np.testing.assert_array_equal(hist.length_symbol(ln).numpy(),
+                                  C.LENGTH_TO_CODE[3:])
+    d = torch.arange(1, 32769)
+    np.testing.assert_array_equal(hist.dist_symbol(d).numpy(),
+                                  C.DIST_TO_CODE[1:])
+    np.testing.assert_array_equal(fields._dist_code(d).numpy(),
+                                  C.DIST_TO_CODE[1:])
+
+
+def _tables(a, b, valid):
+    lit, dist = hist.shared_histograms(a, b, valid)
+    lit_rev, lit_w = de.encoder_tables(package_merge_lengths(lit.numpy(), 10))
+    dist_rev, dist_w = de.encoder_tables(
+        package_merge_lengths(dist.numpy(), 8))
+    return lit_rev, lit_w, dist_rev, dist_w
+
+
+def test_token_fields_match_reference_with_holes():
+    from libflate_tpu.ops.pipeline import _shared_tokens_xla
+    a, b, valid = _tokens(3)
+    tabs = _tables(*(torch.from_numpy(x) for x in (a, b, valid)))
+    want = _shared_tokens_xla(jnp.asarray(a), jnp.asarray(b),
+                              jnp.asarray(valid),
+                              *(jnp.asarray(t) for t in tabs))
+    t = convert.from_reference_batch(dict(
+        a=a, b=b, valid=valid, lit_rev=tabs[0], lit_w=tabs[1],
+        dist_rev=tabs[2], dist_w=tabs[3]))
+    tv = t["valid"]
+    got = fields.token_fields(torch.where(tv, t["a"], -1), t["b"],
+                              t["tables"])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got[1][~tv] == 0).all() and (got[3][~tv] == 0).all()
+    assert int(got[1].max()) <= 10 + 5 and int(got[3].max()) <= 8 + 13

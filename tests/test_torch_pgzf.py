@@ -20,7 +20,7 @@ import torch
 
 jax = pytest.importorskip("jax")
 
-from libflate_tpu.formats.gzip import GzipError  # noqa: E402
+from libflate_tpu_torch.formats.gzip import GzipError  # noqa: E402
 from libflate_tpu_torch import convert  # noqa: E402
 from libflate_tpu_torch.formats import pgzf as port  # noqa: E402
 
@@ -145,27 +145,36 @@ _NO_JAX = """
 import importlib, pkgutil, sys
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax.") or name == "jaxlib":
-            raise ImportError("jax is blocked")
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "libflate_tpu"):
+            raise ImportError(f"{top} is blocked")
 sys.meta_path.insert(0, _Block())
 import libflate_tpu_torch as pkg
 mods = [m.name for m in
         pkgutil.walk_packages(pkg.__path__, "libflate_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+import chip_smoke
 from libflate_tpu_torch.formats import pgzf
 out, lengths = pgzf.decompress_to_device(open(sys.argv[1], "rb").read(),
                                          verify=True, device="cpu")
-assert "jax" not in sys.modules
+data = bytes(range(256)) * 8 + b"abc" * 2000
+import gzip
+assert gzip.decompress(pgzf.compress(data, 1024, device="cpu")) == data
+blocked = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "libflate_tpu")]
+assert not blocked, blocked
 print(len(mods), int(lengths.sum()))
 """
 
 
 def test_imports_and_runs_with_jax_blocked(small):
+    """Every port module and chip_smoke.py import, decode and encode with
+    both JAX and the reference package blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
-        cwd=ROOT, capture_output=True, text=True, timeout=120)
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n_mods, n_bytes = map(int, res.stdout.split())
-    assert n_mods >= 12
+    assert n_mods >= 24
     assert n_bytes == len(gzip.decompress(small))
