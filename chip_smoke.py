@@ -7,7 +7,7 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
    no CUDA means exit 1 before anything runs;
-2. build the seven CUDA sources from ``libflate_tpu_torch/csrc`` with one
+2. build the ten CUDA sources from ``libflate_tpu_torch/csrc`` with one
    nvcc per source, all at once, for sm_90a;
 3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
    a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
@@ -20,22 +20,36 @@ Phases, each of which raises on failure (exit code != 0):
 6. encode input: that 64 MiB plaintext, 8 batches of 128 members of
    64 KiB; each encode kernel against its plain version on the card at
    the first batch's full shapes (128 x 65536), bit-exact;
+   6b. the encode options' kernels against their plain versions on the
+   same batch, bit-exact: the LCP as the quality mode calls it (sort
+   matcher's exact prefix, 8 rounds) and as the hash profile does (hash
+   candidates, 6 rounds), one chain level's gather, the hash table;
 7. the encode main path ``compress(device="cuda")`` of the 64 MiB,
    counted: every encode kernel launched, the stream read back by stdlib
-   gzip and by the port's ``decompress_to_device``;
+   gzip and by the port's ``decompress_to_device``; then, counted the
+   same way, (7b) the quality mode ``options=EncodeOptions(
+   matcher="chain", max_chain=8, lcp_rounds=8)`` with ``match_lengths``
+   and ``gather_rows``, and (7c) the hash profile
+   (``LIBFLATE_DEVICE_MATCHER=hash``, all 8 batches) with
+   ``hash_candidates`` and ``match_lengths``, each ratio beside the
+   default's;
 8. byte identity with every committed reference stream
-   (``tests/data/pgzf_encode_*.pgz``, written by the JAX reference);
+   (``tests/data/pgzf_encode_*.pgz``, written by the JAX reference, each
+   with the options and matcher it was written with);
 9. timing with CUDA events (kernels, plain versions, yardsticks, the
-   chains) and on the host clock (the end-to-end calls, host staging
-   split out), each with the card's name and power limit.
+   chains of the three encode modes) and on the host clock (the
+   end-to-end calls, host staging split out), each with the card's name
+   and power limit.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
+import os
 import pathlib
 import statistics
 import struct
@@ -50,10 +64,34 @@ DATA = ROOT / "tests" / "data"
 FIXTURE = DATA / "pgzf_sync_zipf_2m.pgz"
 COPIES = 32
 HBM_BYTES_PER_MS = 3.35e12 / 1e3      # H100 SXM data sheet, 80 GB HBM3
+#: the quality mode of the reference's bench: EncodeOptions fields
+QUALITY = {"matcher": "chain", "max_chain": 8, "lcp_rounds": 8}
+#: reference stream -> (EncodeOptions fields, LIBFLATE_DEVICE_MATCHER) it
+#: was written with; others: the defaults
+REFERENCE_OPTIONS = {
+    "pgzf_encode_chain8_small.pgz": (QUALITY, "sort"),
+    "pgzf_encode_chain8_w2048_8k.pgz": ({**QUALITY, "window_size": 2048},
+                                        "sort"),
+    "pgzf_encode_hash_small.pgz": (None, "hash"),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def device_matcher(name: str):
+    """Run the block with ``LIBFLATE_DEVICE_MATCHER=name``."""
+    old = os.environ.get("LIBFLATE_DEVICE_MATCHER")
+    os.environ["LIBFLATE_DEVICE_MATCHER"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["LIBFLATE_DEVICE_MATCHER"]
+        else:
+            os.environ["LIBFLATE_DEVICE_MATCHER"] = old
 
 
 def card() -> str:
@@ -97,10 +135,14 @@ def main() -> None:
     from libflate_tpu_torch import _build
     from libflate_tpu_torch.formats import pgzf
     from libflate_tpu_torch.ops import (checksum, deflate_encode,
-                                        device_expand, expand, fields, hist,
-                                        pack, parse, pipeline, rank)
+                                        device_expand, expand, fields,
+                                        gather, hist, lcp, pack, parse,
+                                        pipeline, rank)
+    from libflate_tpu_torch.ops import hash_match as hm
     from libflate_tpu_torch.ops import sort_match as sm
     from libflate_tpu_torch.ops import sync_decode as sd
+    from libflate_tpu_torch.serial.deflate import EncodeOptions
+    quality = EncodeOptions(**QUALITY)
 
     # 1. environment
     card_line = card()
@@ -168,7 +210,8 @@ def main() -> None:
     enc_kernels = (sm.sort_keys, sm.scan_emit, parse.chunk_exits,
                    parse.walk_emit, hist.token_hist, fields.token_fields,
                    pack.pack_stitch)
-    for k in dec_kernels + enc_kernels:
+    opt_kernels = (lcp.match_lengths, gather.gather_rows, hm.hash_candidates)
+    for k in dec_kernels + enc_kernels + opt_kernels:
         k.launches = 0
     plain_dev, lengths = pgzf.decompress_to_device(stream, verify=True,
                                                    device="cuda")
@@ -249,8 +292,46 @@ def main() -> None:
                              f"{errs}")
     del sk_p, sp_p, cand_p, m4_p, ex_p, slots_p, fv_p, words_p
 
+    # 6b. the encode options' kernels against their plain versions, same
+    # batch: LCP as the quality mode calls it (sort m4, lcp_rounds=8, the
+    # 8192 tail window) and as the hash profile does (no m4, 6 rounds),
+    # one chain level's gather, the hash table of the batch
+    lcp_args = (blocks, cand, nv)
+    lcp_kw = {"max_rounds": 8, "window": pipeline.LCP_TAIL_WINDOW,
+              "m4": m4, "m_exact": sm.M_EXACT}
+    ln8 = lcp.match_lengths(*lcp_args, **lcp_kw)
+    ln8_p = lcp.match_lengths_plain(*lcp_args, **lcp_kw)
+    ids = hm.keys_hashes(blocks)
+    hcand_raw = hm.hash_candidates(ids)
+    hcand_raw_p = hm.hash_candidates_plain(ids)
+    hcand = hm.prefix_candidates(blocks)
+    hlcp_args = (blocks, hcand, nv)
+    hlcp_kw = {"max_rounds": pipeline.KERNEL_LCP_ROUNDS, "window": 32768}
+    ln6 = lcp.match_lengths(*hlcp_args, **hlcp_kw)
+    ln6_p = lcp.match_lengths_plain(*hlcp_args, **hlcp_kw)
+    level2 = gather.gather_rows(cand, cand, window=32768)
+    level2_p = gather.gather_rows_plain(cand, cand, window=32768)
+    torch.cuda.synchronize()
+    errs.update({
+        "match_lengths": max(max_abs_err(ln8, ln8_p),
+                             max_abs_err(ln6, ln6_p)),
+        "gather_rows": max_abs_err(level2, level2_p),
+        "hash_candidates": max_abs_err(hcand_raw, hcand_raw_p)})
+    log(f"option kernels vs plain at members={n_b} n={ms_enc}: "
+        f"match_lengths (sort m4, 8 rounds, window 8192; hash cand, 6 "
+        f"rounds, window 32768) {errs['match_lengths']}, gather_rows "
+        f"(chain level 2) {errs['gather_rows']}, hash_candidates "
+        f"{errs['hash_candidates']} (lengths > 16: "
+        f"{int((ln8 > 16).sum())}; hash cand >= 0: "
+        f"{int((hcand >= 0).sum())}; level-2 cand >= 0: "
+        f"{int((level2 >= 0).sum())})")
+    if any(errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: "
+                             f"{errs}")
+    del ln8_p, ln6_p, level2_p, hcand_raw_p
+
     # 7. the encode main path, counted
-    for k in dec_kernels + enc_kernels:
+    for k in dec_kernels + enc_kernels + opt_kernels:
         k.launches = 0
     enc_stream = pgzf.compress(data, member_size=ms_enc, device="cuda")
     torch.cuda.synchronize()
@@ -275,6 +356,49 @@ def main() -> None:
         f"(ratio {ratio:.6f}), read back by stdlib gzip and by "
         f"decompress_to_device(verify=True)")
 
+    def read_back(stream: bytes, what: str) -> None:
+        if gzip.decompress(stream) != data:
+            raise AssertionError(f"stdlib gzip does not read back {what}")
+        back, back_len = pgzf.decompress_to_device(stream, verify=True,
+                                                   device="cuda")
+        live = (torch.arange(back.shape[1], device=dev)[None, :]
+                < back_len.to(torch.int64)[:, None])
+        if bytes(back[live].cpu().numpy()) != data:
+            raise AssertionError(f"the port's decode does not read back "
+                                 f"{what}")
+
+    def run_counted(kernels, what: str, **kw) -> bytes:
+        for k in dec_kernels + enc_kernels + opt_kernels:
+            k.launches = 0
+        with device_matcher(kw.pop("matcher", "sort")):
+            stream = pgzf.compress(data, member_size=ms_enc, device="cuda",
+                                   **kw)
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in kernels}
+        log(f"{what} launches: {counts}")
+        if min(counts.values()) < 1:
+            raise AssertionError(f"a kernel of the path did not run: "
+                                 f"{counts}")
+        read_back(stream, what)
+        log(f"{what}: {len(data)} bytes -> {len(stream)} bytes (ratio "
+            f"{len(stream) / len(data):.6f}, default {ratio:.6f}), read "
+            f"back by stdlib gzip and by decompress_to_device(verify=True)")
+        return stream
+
+    # 7b. the quality mode, counted
+    q_stream = run_counted(enc_kernels + (lcp.match_lengths,
+                                          gather.gather_rows),
+                           "quality mode (chain 8, lcp_rounds 8)",
+                           options=quality)
+    for k in (lcp.match_lengths, gather.gather_rows):
+        launches[k.__name__] = k.launches
+    # 7c. the hash profile at full depth (8 batches), counted
+    h_stream = run_counted(enc_kernels[2:] + (hm.hash_candidates,
+                                              lcp.match_lengths),
+                           "hash profile (LIBFLATE_DEVICE_MATCHER=hash, 8 "
+                           "batches)", matcher="hash")
+    launches["hash_candidates"] = hm.hash_candidates.launches
+
     # 8. byte identity with the committed reference streams
     refs = sorted(DATA.glob("pgzf_encode_*.pgz"))
     if not refs:
@@ -284,11 +408,16 @@ def main() -> None:
         plain = gzip.decompress(ref)
         first = pgzf.index_members(ref)[0]
         member = struct.unpack_from("<I", ref, first.end - 4)[0]
-        got = pgzf.compress(plain, member_size=member, device="cuda")
+        opts, matcher = REFERENCE_OPTIONS.get(path.name, (None, "sort"))
+        options = EncodeOptions(**opts) if opts else None
+        with device_matcher(matcher):
+            got = pgzf.compress(plain, member_size=member, options=options,
+                                device="cuda")
         if got != ref:
             raise AssertionError(f"compress differs from {path.name}")
-        log(f"{path.name}: {len(plain)} bytes at member_size {member} -> "
-            f"{len(ref)} bytes, byte-identical to the reference")
+        log(f"{path.name}: {len(plain)} bytes at member_size {member}, "
+            f"{matcher} matcher, {options} -> {len(ref)} bytes, "
+            f"byte-identical to the reference")
 
     # 9. timing
     n_dec = len(oracle)
@@ -359,7 +488,24 @@ def main() -> None:
          lambda: pack.pack_stitch(values, widths, cstarts, w_out),
          lambda: pack.pack_stitch_plain(values, widths, cstarts, w_out),
          None, nbytes(values, widths, cstarts, words), 20, 3),
+        ("match_lengths", "libflate_tpu_torch/csrc/lcp.cu",
+         "libflate_tpu/ops/pallas_lcp.py:72",
+         lambda: lcp.match_lengths(*lcp_args, **lcp_kw),
+         lambda: lcp.match_lengths_plain(*lcp_args, **lcp_kw), None,
+         nbytes(blocks, cand, m4, nv, ln8), 20, 3),
+        ("gather_rows", "libflate_tpu_torch/csrc/gather.cu",
+         "libflate_tpu/ops/pallas_gather.py:41",
+         lambda: gather.gather_rows(cand, cand, window=32768),
+         lambda: gather.gather_rows_plain(cand, cand, window=32768),
+         lambda: torch.gather(cand, 1, cand_idx),
+         nbytes(cand, cand, level2), 20, 3),
+        ("hash_candidates", "libflate_tpu_torch/csrc/hash.cu",
+         "libflate_tpu/ops/pallas_lz77.py:52",
+         lambda: hm.hash_candidates(ids),
+         lambda: hm.hash_candidates_plain(ids), None,
+         nbytes(ids, hcand_raw), 10, 1),
     ]
+    cand_idx = cand.to(torch.int64).clamp(min=0)
     summary = []
     for kname, source, replaces, kfn, pfn, lfn, moved, reps, preps in rows:
         ms = cuda_ms(kfn, reps)
@@ -438,23 +584,63 @@ def main() -> None:
         device_s[0] += time.perf_counter() - t0
         return res
 
-    pgzf.encode_batch = timed_encode_batch
-    walls, dev_parts = [], []
-    for _ in range(3):
-        device_s[0] = 0.0
-        t = time.perf_counter()
-        pgzf.compress(data, member_size=ms_enc, device="cuda")
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-        dev_parts.append(device_s[0])
-    pgzf.encode_batch = real_encode_batch
-    i_med = walls.index(statistics.median(walls))
-    enc_s, enc_dev = walls[i_med], dev_parts[i_med]
-    log(f"end to end compress(64 MiB, device='cuda'): {enc_s * 1e3:.2f} ms "
-        f"median of 3, {len(data) / enc_s / 1e9:.3f} GB/s of input; "
-        f"encode_batch calls {enc_dev * 1e3:.2f} ms, host staging and "
-        f"assembly {(enc_s - enc_dev) * 1e3:.2f} ms; ratio {ratio:.6f} "
+    def end_to_end(what: str, ratio_: float, matcher: str = "sort",
+                   options=None) -> None:
+        """Median of 3 host-clock compress calls of the 64 MiB, split
+        into the encode_batch calls and the host."""
+        pgzf.encode_batch = timed_encode_batch
+        walls, dev_parts = [], []
+        with device_matcher(matcher):
+            for _ in range(3):
+                device_s[0] = 0.0
+                t = time.perf_counter()
+                pgzf.compress(data, member_size=ms_enc, options=options,
+                              device="cuda")
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                dev_parts.append(device_s[0])
+        pgzf.encode_batch = real_encode_batch
+        i_med = walls.index(statistics.median(walls))
+        enc_s, enc_dev = walls[i_med], dev_parts[i_med]
+        log(f"end to end compress(64 MiB, {what}, device='cuda'): "
+            f"{enc_s * 1e3:.2f} ms median of 3, "
+            f"{len(data) / enc_s / 1e9:.3f} GB/s of input; encode_batch "
+            f"calls {enc_dev * 1e3:.2f} ms, host staging and assembly "
+            f"{(enc_s - enc_dev) * 1e3:.2f} ms; ratio {ratio_:.6f} "
+            f"[{card_line}]")
+
+    end_to_end("default", ratio)
+
+    # the option paths: one batch's chain, its new stages, end to end
+    q_knobs = pipeline.device_knobs(quality)
+    with device_matcher("hash"):
+        opt_batches = {
+            "hash profile": cuda_ms(
+                lambda: pipeline.encode_batch(blocks, nv, 256), 5)}
+    opt_batches["quality mode"] = cuda_ms(
+        lambda: pipeline.encode_batch(blocks, nv, 256, **q_knobs), 5)
+    opt_stages = {
+        "quality lengths_stage (8 LCP + 7 gather launches, glue)":
+            lambda: pipeline.lengths_stage(blocks, nv, cand, m4, **q_knobs),
+        "hash prefix_candidates (keys glue + kernel + mask)":
+            lambda: hm.prefix_candidates(blocks),
+        "hash keys_hashes (glue)": lambda: hm.keys_hashes(blocks),
+        "hash lengths_stage (1 LCP launch, glue)":
+            lambda: pipeline.lengths_stage(blocks, nv, hcand),
+        "match_lengths, hash candidates, 6 rounds, window 32768":
+            lambda: lcp.match_lengths(*hlcp_args, **hlcp_kw),
+    }
+    opt_breakdown = {k: cuda_ms(fn, 5) for k, fn in opt_stages.items()}
+    log("option batch chains (encode_batch, 128 x 64 KiB), ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in opt_batches.items()) + f" [{card_line}]")
+    log("option stages, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in opt_breakdown.items())
+        + f"; hash-candidate LCP bound "
+        f"{nbytes(blocks, hcand, nv, ln6) / HBM_BYTES_PER_MS:.4f} ms "
         f"[{card_line}]")
+    end_to_end("quality mode: chain 8, lcp_rounds 8",
+               len(q_stream) / len(data), options=quality)
+    end_to_end("hash profile", len(h_stream) / len(data), matcher="hash")
 
     print(json.dumps({"kernels": summary}))
     print(card_line)

@@ -10,7 +10,10 @@ copies.  The layout mirrors the reference file by file:
     formats/pgzf.py          compress, decompress_to_device
     formats/gzip.py          gzip member headers
     ops/sort_match.py        content-sort LZ77 candidates  csrc/match.cu
-    ops/pipeline.py          batch encode (torch glue)
+    ops/hash_match.py        hash-table LZ77 candidates    csrc/hash.cu
+    ops/lcp.py               capped match lengths          csrc/lcp.cu
+    ops/gather.py            per-member gather, chain step csrc/gather.cu
+    ops/pipeline.py          batch encode, options (glue)
     ops/parse.py             greedy parse + emit           csrc/parse.cu
     ops/hist.py              batch symbol histogram        csrc/fields.cu
     ops/fields.py            token (value, width) fields   csrc/fields.cu
@@ -21,7 +24,7 @@ copies.  The layout mirrors the reference file by file:
     ops/rank.py              rank + mod-collapse           csrc/rank.cu
     ops/expand.py            pointer chase to bytes        csrc/resolve.cu
     ops/checksum.py          member CRC f-values (GF(2) matmul)
-    serial/deflate.py        stored blocks, block-header parser
+    serial/deflate.py        EncodeOptions, stored blocks, header parser
     spec/constants.py, utils/checksum.py   format constants, CRC operators
 
 Every kernel wrapper takes CPU tensors to the kernel's plain PyTorch

@@ -37,6 +37,9 @@ _SIGNATURES = {
     "lf_token_hist": "pppqpp",
     "lf_token_fields": "pppqppppp",
     "lf_pack_stitch": "ppppiiip",
+    "lf_match_lengths": "pppppiiiiip",
+    "lf_gather_rows": "pppiiiip",
+    "lf_hash_candidates": "ppiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 

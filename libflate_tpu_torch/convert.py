@@ -10,9 +10,13 @@ takes, on a given device, so both sides decode identical state.  The
 reference stages each chunk slot as a column of ``D`` words in its TPU
 layout ``(P, D*8, 128)``; the port reads one flat word stream with an
 absolute start bit per slot, so the columns are laid end to end and slot
-s starts at bit ``s*D*32 + sb[s]``.  Nothing here imports JAX.
+s starts at bit ``s*D*32 + sb[s]``.
+:func:`from_reference_options` copies the reference's ``EncodeOptions``
+into the port's.  Nothing here imports JAX.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -47,6 +51,16 @@ def from_reference_group(prep: dict, device="cpu") -> dict:
                                 "member_cap", "isizes", "crcs_expected",
                                 "member0")},
     }
+
+
+def from_reference_options(options):
+    """The reference's ``EncodeOptions`` -> the port's, field by field
+    (None stays None)."""
+    if options is None:
+        return None
+    from .serial.deflate import EncodeOptions
+    return EncodeOptions(**{f.name: getattr(options, f.name)
+                            for f in dataclasses.fields(EncodeOptions)})
 
 
 #: encode intermediates by name -> the dtype the port's stages take

@@ -1,0 +1,52 @@
+// Per-member gather for Hopper (sm_90a), with the chain step fused in.
+//
+// lf_gather_rows replaces libflate_tpu/ops/pallas_gather.py
+// `_gather_kernel` (via `gather_rows`): out[b, i] = table[b, clip(idx[b,
+// i], 0, R - 1)].  The TPU kernel scans the member's table rows in VMEM
+// with a broadcast, a lane shuffle and a select per row, because Mosaic
+// has no per-element gather, and skips 64-row blocks outside each vreg's
+// index range.  Here one thread loads its entry from the table through
+// L1/L2; no skip is needed.
+//
+// With window >= 0 the launch also applies the chain step of
+// `_compose_cand` (libflate_tpu/ops/pipeline.py:86-87): the entry is kept
+// only where idx >= 0, entry >= 0 and i - entry <= window, else -1.
+//
+// What bounds it: bytes.  It reads idx and the table once and writes out
+// once (12 bytes an entry: 101 MB for 128 x 65536, 0.030 ms at 3.35 TB/s);
+// the table reads are window-local, so they hit L2.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const int32_t* __restrict__ table,
+              const int32_t* __restrict__ idx, int32_t* __restrict__ out,
+              int rows, int n_out, int window) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_out) return;
+  const int64_t off = static_cast<int64_t>(b) * n_out + i;
+  const int j = idx[off];
+  const int v =
+      __ldg(table + static_cast<int64_t>(b) * rows + min(max(j, 0), rows - 1));
+  out[off] = window < 0 || (j >= 0 && v >= 0 && i - v <= window) ? v : -1;
+}
+
+}  // namespace
+
+extern "C" int lf_gather_rows(const void* table, const void* idx, void* out,
+                              int n_members, int rows, int n_out, int window,
+                              void* stream) {
+  if (n_members <= 0 || n_out <= 0) return 0;
+  if (rows <= 0 || n_members > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n_out + kThreads - 1) / kThreads, n_members);
+  gather_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(idx),
+      static_cast<int32_t*>(out), rows, n_out, window);
+  return static_cast<int>(cudaGetLastError());
+}

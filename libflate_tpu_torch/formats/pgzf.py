@@ -1,7 +1,8 @@
 """PGZF on the device (counterpart of ``libflate_tpu/formats/pgzf.py``).
 
-Encode: :func:`compress` (``_compress_device``, ``:241-418``) cuts the
-input into members, encodes batches of 128 on the device
+Encode: :func:`compress` (``_compress_device``, ``:241-418``) turns the
+reference's ``EncodeOptions`` into device knobs, cuts the input into
+members, encodes batches of 128 on the device
 (``ops/pipeline.encode_batch``) and assembles the members on the host:
 bit splice, member CRC, the "LF" member-size and "LS" sync-index header
 subfields, and the stored fallback for incompressible members.
@@ -28,7 +29,7 @@ from ..ops.checksum import crc32_f_rows, crc32_from_padded_f
 from ..ops.deflate_encode import splice_blocks_host
 from ..ops.device_expand import expand_members
 from ..ops.huffman import decode_table
-from ..ops.pipeline import encode_batch
+from ..ops.pipeline import device_knobs, encode_batch
 from ..ops.sync_decode import SYNC_TOKENS, stream_words, sync_decode
 from ..serial.deflate import DeflateError, deflate_stored, \
     parse_block_headers
@@ -159,25 +160,60 @@ def _check_member_size(member_size: int) -> None:
             "which is not ported yet")
 
 
+def _encode_knobs(options) -> dict:
+    """The device knobs of ``options``; ValueError for the settings the
+    reference sends to an encoder the port lacks."""
+    if options is None:
+        return {}
+    matcher = getattr(options, "matcher", "greedy")
+    block_type = getattr(options, "block_type", "dynamic")
+    if matcher == "none" or block_type == "stored":
+        raise ValueError("matcher='none' and block_type='stored' take the "
+                         "reference's serial encoder, which is not ported")
+    if block_type != "dynamic":
+        raise ValueError(f"block_type={block_type!r} takes the reference's "
+                         "generic device engine (_encode_batch), which is "
+                         "not ported")
+    if matcher not in ("greedy", "lazy", "chain"):
+        raise ValueError(f"unknown matcher {matcher!r}")
+    knobs = device_knobs(options)
+    window = knobs.get("window", C.MAX_DISTANCE)
+    if window % 1024 or not 1024 <= window <= C.MAX_DISTANCE:
+        raise ValueError(f"window_size must be a multiple of 1024 up to "
+                         f"32768, got {window}")
+    return knobs
+
+
 def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
-             device="cuda") -> bytes:
+             options=None, device="cuda") -> bytes:
     """Compress into an indexed, sync-indexed multi-member gzip stream.
 
     Byte-identical to the reference's device encode
-    (``pgzf.compress(data, member_size, engine="tpu")`` with its default
-    sort matcher) for ``member_size`` a multiple of 1024 up to 65536;
-    other sizes raise ValueError.  Members are encoded in batches of 128
-    sharing one Huffman code; a batch whose parse overflows the 384-slot
-    chunk budget is encoded again at 512; a member whose coded body is
-    not smaller than stored blocks is written stored (no LS index).
-    Any stock gzip reader decodes the result.
+    (``pgzf.compress(data, member_size, options=options, engine="tpu")``
+    on its TPU kernel branches) for ``member_size`` a multiple of 1024 up
+    to 65536; other sizes raise ValueError.  ``options`` is an
+    ``EncodeOptions`` (the port's or the reference's): ``matcher="chain"``
+    with ``max_chain``, ``lcp_rounds``, ``window_size`` (a multiple of
+    1024 up to 32768), ``lazy`` and ``parse_cap`` set the device knobs;
+    ``matcher`` "greedy" and "lazy" change nothing.  The candidates come
+    from the sort matcher, or from the hash matcher under
+    ``LIBFLATE_DEVICE_MATCHER=hash``.  Members are encoded in batches of
+    128 sharing one Huffman code; a batch whose parse overflows the
+    chunk budget (384 slots, or ``parse_cap``) is encoded again at 512
+    with the other knobs kept; a member whose coded body is not smaller
+    than stored blocks is written stored (no LS index).  Any stock gzip
+    reader decodes the result.
 
     Runs on ``device`` ("cuda" unless the caller asks for "cpu", which
-    runs every kernel's plain version); raises RuntimeError for "cuda"
-    without CUDA, DeflateError if a coded field breaks the pack
-    invariant (an internal error).
+    runs every kernel's plain version).  Raises ValueError for
+    ``matcher="none"``, a ``block_type`` other than "dynamic" (the
+    reference's serial encoder and generic device engine are not
+    ported), an unknown matcher or ``LIBFLATE_DEVICE_MATCHER`` value, or
+    a bad window; RuntimeError for "cuda" without CUDA; DeflateError if a
+    coded field breaks the pack invariant (an internal error).
     """
     _check_member_size(member_size)
+    knobs = _encode_knobs(options)
     dev = _device(device)
     data = bytes(data)
     raw = np.frombuffer(data, np.uint8)
@@ -196,11 +232,12 @@ def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
         rows.reshape(-1)[:len(chunk)] = chunk
         blocks = torch.from_numpy(rows).to(dev)
         nv = torch.from_numpy(n_valid[sl]).to(dev)
-        out = encode_batch(blocks, nv, SYNC_TOKENS)
+        out = encode_batch(blocks, nv, SYNC_TOKENS, **knobs)
         if bool(out["overflow"].any()):
-            # a literal-dense chunk blew the 384-slot budget: its words
-            # are incomplete; 512 slots always fit a 512-position chunk
-            out = encode_batch(blocks, nv, SYNC_TOKENS, cap=512)
+            # a literal-dense chunk blew the slot budget: its words are
+            # incomplete; 512 slots always fit a 512-position chunk
+            out = encode_batch(blocks, nv, SYNC_TOKENS,
+                               **{**knobs, "cap": 512})
         if bool(out["wide"].any()):
             raise DeflateError(
                 "internal: field width exceeds the pack kernel's "

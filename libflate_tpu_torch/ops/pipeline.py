@@ -1,15 +1,20 @@
 """The shared-table sync encode of one batch of members (counterpart of
-``libflate_tpu/ops/pipeline.py``: ``_lengths_stage`` (``:98-196``, the
-sort matcher's branch), ``_shared_stats`` (``:366``), ``_shared_header``
-(``:397``, inlined), ``_shared_tokens_kernel`` (``:428``),
-``_shared_assemble`` (``:412``), ``_pack_chunks_device`` (``:551``),
-``_sync_offsets_padded`` (``:638``), ``_sync_cols_tail`` (``:797``) and
-``_encode_batch_sync_cols`` (``:767``)).
+``libflate_tpu/ops/pipeline.py``: ``_lengths_stage`` (``:98-196``),
+``_compose_cand`` (``:70``, fused into the gather kernel),
+``_tokenize_padded`` (``:208``), ``_device_knobs`` (``:270``),
+``_shared_stats`` (``:366``), ``_shared_header`` (``:397``, inlined),
+``_shared_tokens_kernel`` (``:428``), ``_shared_assemble`` (``:412``),
+``_pack_chunks_device`` (``:551``), ``_sync_offsets_padded`` (``:638``),
+``_sync_cols_tail`` (``:797``) and ``_encode_batch_sync_cols``
+(``:767``)).
 
 One batch runs, on the batch's device::
 
     sort_keys -> scan_emit           (cand, m)       csrc/match.cu
+      or keys_hashes -> hash_candidates   (cand)     csrc/hash.cu
     lengths_stage                    match lengths   torch glue
+      match_lengths                  LCP rounds      csrc/lcp.cu
+      gather_rows                    chain levels    csrc/gather.cu
     chunk_exits -> walk_emit         padded tokens   csrc/parse.cu
     token_hist                       batch counts    csrc/fields.cu
     package-merge, codes, header     shared code     host, numpy
@@ -18,12 +23,19 @@ One batch runs, on the batch's device::
     pack_stitch                      member words    csrc/pack.cu
     sync offsets, CRC f-values       LS index, CRC   torch glue
 
-The configuration is the reference's default: lazy matching, window
-32768, one candidate (no chain), lengths capped at 16 by the sort
-matcher's exact prefix (the LCP kernel is skipped), shared code lengths
-capped at 10 (litlen) and 8 (distance).
+The knobs are the reference's (:func:`device_knobs` reads them from
+``EncodeOptions``): the matcher (``LIBFLATE_DEVICE_MATCHER``: ``sort``,
+the default, or ``hash``), ``window``, ``lazy`` (zlib's TOO_FAR and
+one-step lazy matching), ``chain`` (candidates of candidates, best of
+``chain`` levels), ``lcp_rounds`` (LCP extension, 4 bytes a round) and
+the parse ``cap``.  By default: the sort matcher, window 32768, lazy, one
+candidate, and lengths capped at 16 by the sort matcher's exact prefix
+(the LCP kernel is skipped).  Shared code lengths are capped at 10
+(litlen) and 8 (distance).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -33,11 +45,14 @@ from .checksum import crc32_f_rows
 from .deflate_encode import (N_HEADER_FIELDS, N_LENGTH_FIELDS,
                              dynamic_header_fields, encoder_tables)
 from .fields import field_tables, token_fields
+from .gather import gather_rows
+from .hash_match import prefix_candidates
 from .hist import shared_histograms
 from .huffman import package_merge_lengths
+from .lcp import match_lengths
 from .pack import pack_chunks
 from .parse import CHUNK, parse_tokens
-from .sort_match import WINDOW, sort_candidates
+from .sort_match import M_EXACT, WINDOW, sort_candidates
 
 #: token slots per 512-position parse chunk; an overflowing batch is
 #: encoded again at 512, which a chunk can never overflow
@@ -46,17 +61,74 @@ PARSE_CAP = 384
 SHARED_MAX_LEN = 10
 #: field-width invariant of the reference's pack kernel column depth
 MAX_FIELD, MAX_PAIR = 28, 38
+#: LCP rounds without the sort matcher's exact prefix (hash candidates,
+#: chain levels) when ``lcp_rounds`` is not set
+KERNEL_LCP_ROUNDS = 6
+#: the LCP sweep's window when the sort matcher's exact prefix is given
+LCP_TAIL_WINDOW = 8192
 
 
-def lengths_stage(blocks, n_valid, cand, m4):
-    """Candidate masking, run-length arithmetic, length clip and the lazy
-    heuristics; returns (cand, lengths), both (B, n) int32."""
+def device_knobs(options) -> dict:
+    """EncodeOptions -> the keyword arguments of :func:`encode_batch`
+    (the reference's ``_device_knobs``): only the knobs that differ from
+    their defaults.  Options are read with ``getattr``, so the
+    reference's ``EncodeOptions`` works too."""
+    if options is None:
+        return {}
+    knobs = {}
+    if getattr(options, "parse_cap", None) is not None:
+        knobs["cap"] = int(options.parse_cap)
+    if getattr(options, "window_size", C.MAX_DISTANCE) != C.MAX_DISTANCE:
+        knobs["window"] = int(options.window_size)
+    if getattr(options, "lazy", True) is False:
+        knobs["lazy"] = False
+    if getattr(options, "matcher", "greedy") == "chain":
+        knobs["chain"] = max(1, int(getattr(options, "max_chain", 1)))
+    if getattr(options, "lcp_rounds", None) is not None:
+        knobs["lcp_rounds"] = int(options.lcp_rounds)
+    return knobs
+
+
+def lengths_stage(blocks, n_valid, cand, m4=None, *, lazy: bool = True,
+                  window: int = WINDOW, chain: int = 1,
+                  lcp_rounds: int | None = None):
+    """Candidate masking, LCP extension, chain levels, run-length
+    arithmetic, length clip and (with ``lazy``) the TOO_FAR and lazy
+    rules; returns (cand, lengths), both (B, n) int32.
+
+    ``m4`` is the sort matcher's exact prefix length (up to 16); None for
+    the hash matcher.  The LCP kernel runs ``lcp_rounds`` rounds (default:
+    skipped with ``m4``, 6 without), and is skipped whenever the rounds
+    do not pass the ``m4`` prefix's 4; with ``m4`` it sweeps only
+    ``min(window, 8192)``.  Chain level k gathers the candidate of the
+    current best candidate and replaces it where its LCP (no ``m4``, the
+    full window) is strictly longer, so ties keep the nearer one.
+    """
     bsz, n = blocks.shape
     dev = blocks.device
     idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
     nv = n_valid.to(torch.int32)[:, None]
     cand = torch.where(idx < nv, cand, -1)
-    lengths = torch.where(cand >= 0, m4, 0)
+
+    def lcp(c, m4_=None):
+        first = M_EXACT // 4 if m4_ is not None else 0
+        rounds = (lcp_rounds if lcp_rounds is not None
+                  else first if m4_ is not None else KERNEL_LCP_ROUNDS)
+        if m4_ is not None and rounds <= first:
+            return torch.where(c >= 0, m4_, 0)
+        win = min(window, LCP_TAIL_WINDOW) if m4_ is not None else window
+        return match_lengths(blocks, c, n_valid, max(rounds, first + 1),
+                             win, m4_, M_EXACT)
+
+    lengths = lcp(cand, m4)
+    deeper = cand
+    for _ in range(chain - 1):
+        # the reference composes with the current best-of table
+        deeper = gather_rows(cand, deeper, window=window)
+        ld = lcp(deeper)
+        upd = ld > lengths
+        cand = torch.where(upd, deeper, cand)
+        lengths = torch.where(upd, ld, lengths)
     # dist-1 runs are exact: LCP(i, i-1) = run end - i
     neq = torch.ones((bsz, n), dtype=torch.bool, device=dev)
     neq[:, :-1] = blocks[:, 1:] != blocks[:, :-1]
@@ -69,18 +141,38 @@ def lengths_stage(blocks, n_valid, cand, m4):
     lengths = torch.where(is_rle, torch.maximum(lengths, rle_len), lengths)
     lengths = torch.minimum(lengths, (nv - idx).clamp(min=0))
     lengths = torch.where(lengths >= C.MIN_MATCH, lengths, 0)
-    # zlib's TOO_FAR, then one-step lazy matching
-    lengths = torch.where((lengths == 3) & (idx - cand > 4096), 0, lengths)
-    nxt = torch.zeros_like(lengths)
-    nxt[:, :-1] = lengths[:, 1:]
-    lengths = torch.where((nxt > lengths) & (lengths > 0), 0, lengths)
+    if lazy:
+        # zlib's TOO_FAR, then one-step lazy matching
+        lengths = torch.where((lengths == 3) & (idx - cand > 4096), 0,
+                              lengths)
+        nxt = torch.zeros_like(lengths)
+        nxt[:, :-1] = lengths[:, 1:]
+        lengths = torch.where((nxt > lengths) & (lengths > 0), 0, lengths)
     return cand.to(torch.int32), lengths.to(torch.int32)
 
 
-def tokenize(blocks, n_valid, cap: int = PARSE_CAP):
-    """(a, b, valid, n_tokens, overflow) padded token slots of a batch."""
-    cand, m4 = sort_candidates(blocks, window=WINDOW)
-    cand, lengths = lengths_stage(blocks, n_valid, cand, m4)
+def matcher() -> str:
+    """The candidate matcher ``LIBFLATE_DEVICE_MATCHER`` selects: "sort"
+    (also when unset) or "hash"; other values raise ValueError."""
+    name = os.environ.get("LIBFLATE_DEVICE_MATCHER", "sort")
+    if name not in ("sort", "hash"):
+        raise ValueError(f"LIBFLATE_DEVICE_MATCHER must be 'sort' or "
+                         f"'hash', got {name!r}")
+    return name
+
+
+def tokenize(blocks, n_valid, cap: int = PARSE_CAP, *, lazy: bool = True,
+             window: int = WINDOW, chain: int = 1,
+             lcp_rounds: int | None = None):
+    """(a, b, valid, n_tokens, overflow) padded token slots of a batch,
+    from the candidates of :func:`matcher`."""
+    if matcher() == "hash":
+        cand, m4 = prefix_candidates(blocks, window=window), None
+    else:
+        cand, m4 = sort_candidates(blocks, window=window)
+    cand, lengths = lengths_stage(blocks, n_valid, cand, m4, lazy=lazy,
+                                  window=window, chain=chain,
+                                  lcp_rounds=lcp_rounds)
     return parse_tokens(blocks, n_valid, cand, lengths, cap)
 
 
@@ -164,11 +256,13 @@ def width_flags(widths) -> torch.Tensor:
 
 
 def encode_batch(blocks: torch.Tensor, n_valid: torch.Tensor, k: int,
-                 cap: int = PARSE_CAP) -> dict:
+                 cap: int = PARSE_CAP, **knobs) -> dict:
     """Shared-table sync encode of one batch (the reference's
     ``_encode_batch_sync_cols`` + ``_sync_cols_tail``).
 
-    blocks: (B, n) uint8 member bytes, zero-padded; n_valid: (B,) int32.
+    blocks: (B, n) uint8 member bytes, zero-padded; n_valid: (B,) int32;
+    ``knobs``: ``lazy``, ``window``, ``chain``, ``lcp_rounds`` of
+    :func:`tokenize` (:func:`device_knobs` gives them, with ``cap``).
     Returns a dict of device tensors: ``words`` (B, W) int32 member bit
     streams, ``bits`` and ``n_tokens`` (B,) int32, ``crc_f`` (B,) int32
     raw CRC registers of the zero-padded rows, ``overflow`` and
@@ -178,7 +272,7 @@ def encode_batch(blocks: torch.Tensor, n_valid: torch.Tensor, k: int,
     if n % CHUNK:
         raise ValueError("encode_batch: member size must be a multiple "
                          "of 512")
-    a, b, valid, cnt, ovf = tokenize(blocks, n_valid, cap)
+    a, b, valid, cnt, ovf = tokenize(blocks, n_valid, cap, **knobs)
     (lit_lengths, dist_lengths, lit_rev, lit_w, dist_rev,
      dist_w) = shared_stats(a, b, valid)
     # BFINAL set: every member is one final block

@@ -1,12 +1,14 @@
-"""Host-side DEFLATE pieces of the port: the error type, the stored-block
-writer (counterpart of ``deflate(raw, EncodeOptions(block_type="stored"))``
-in ``libflate_tpu/serial/deflate.py``) and the block-header parser that
+"""Host-side DEFLATE pieces of the port: the error type, the encode
+options (``EncodeOptions``, ``libflate_tpu/serial/deflate.py:36-55``), the
+stored-block writer (counterpart of ``deflate(raw,
+EncodeOptions(block_type="stored"))``) and the block-header parser that
 stages the device decode (counterpart of the native engine's
 ``parse_dyn_headers``, ``libflate_tpu/native/__init__.py:202``).
 """
 from __future__ import annotations
 
 import struct
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -15,6 +17,29 @@ from ..spec import constants as C
 
 class DeflateError(ValueError):
     """Malformed DEFLATE data, or an encode that cannot be written."""
+
+
+@dataclass
+class EncodeOptions:
+    """The reference's encode options, same fields and defaults.  The
+    device encode reads ``window_size``, ``lazy``, ``matcher`` with
+    ``max_chain``, ``parse_cap`` and ``lcp_rounds``
+    (``ops/pipeline.device_knobs``); ``block_size`` and ``max_match``
+    serve only the reference's serial encoder, which is not ported."""
+    block_size: int = C.DEFAULT_BLOCK_SIZE
+    #: "stored" | "fixed" | "dynamic"
+    block_type: str = "dynamic"
+    #: "none" | "greedy" | "lazy" | "chain"
+    matcher: str = "greedy"
+    window_size: int = C.MAX_DISTANCE
+    max_match: int = C.MAX_MATCH
+    max_chain: int = 32
+    lazy: bool = True
+    #: token-slot budget per 512-position parse chunk (384 when None)
+    parse_cap: int | None = None
+    #: total LCP extension rounds, 4 bytes each; None skips the LCP
+    #: kernel on the sort matcher (lengths stay its exact 16 bytes)
+    lcp_rounds: int | None = None
 
 
 def deflate_stored(data: bytes) -> bytes:

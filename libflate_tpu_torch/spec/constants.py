@@ -18,6 +18,7 @@ MAX_CLC_BITWIDTH = 7
 MIN_MATCH = 3
 MAX_MATCH = 258
 MAX_DISTANCE = 32768
+DEFAULT_BLOCK_SIZE = 1 << 20
 
 MAX_STORED_BLOCK = 0xFFFF    # stored block LEN is a u16
 

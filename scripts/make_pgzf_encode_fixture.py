@@ -28,18 +28,34 @@ ValueError.
   (the plaintext of ``pgzf_sync_zipf_2m.pgz``) in 8192-byte members: 256
   members in 2 batches, 778,211 bytes, sha256
   ``39990a73669d63105f82cb8794630a9bc88561703ff35150d0b2ce1f22b23df1``.
+* ``tests/data/pgzf_encode_chain8_small.pgz`` — ``small_corpus()`` at
+  1 KiB members in the quality mode of the reference's bench,
+  ``EncodeOptions(matcher="chain", max_chain=8, lcp_rounds=8)``: 72,673
+  bytes, sha256
+  ``62bfeb458ff933d2d575fb4aa8d2278c85999f4f2932308e6917207fd5cc5893``.
+* ``tests/data/pgzf_encode_hash_small.pgz`` — ``small_corpus()`` at 1 KiB
+  members with the hash matcher (``LIBFLATE_DEVICE_MATCHER=hash``):
+  74,232 bytes, sha256
+  ``cd1a3c346cfebddb761d9b758ad644249bf9d2bcb0ae7577701cf292d8c66f82``.
+* ``tests/data/pgzf_encode_chain8_w2048_8k.pgz`` — the first 1 MiB of
+  ``bench.make_corpus(2)`` in 8192-byte members (one batch), chain-8
+  quality mode with ``window_size=2048``: 393,837 bytes, sha256
+  ``f6cb37a186b6c8ccfbc687222cb0c12d3bcf1d7f4ff7feb53479892a5ab9486c``.
 
 Times on an 8-core x86 CPU, interpret mode, cold compile: the small
 stream 82 s; the large one did not finish in 1200 s at 65536-byte
 members, nor in 1200 s at 16384, and took 438 s at 8192 (217 s at 4096:
 the interpreted bitonic sort's compile grows steeply with the member
-size).
+size).  The chain-8 and hash small streams 105 s and 40 s, the 8 KiB
+chain-8 stream 495 s.
 
 Run from the repository root (``--big`` also writes the large stream,
 trying member sizes 65536, 16384, 8192, 4096 in turn under ``--limit``
-seconds each)::
+seconds each; ``--chain-8k`` the 8 KiB chain-8 stream under
+``--limit``)::
 
-    JAX_PLATFORMS=cpu python scripts/make_pgzf_encode_fixture.py [--big]
+    JAX_PLATFORMS=cpu python scripts/make_pgzf_encode_fixture.py \
+        [small] [chain8_small] [hash_small] [--chain-8k] [--big]
 """
 from __future__ import annotations
 
@@ -73,10 +89,11 @@ def big_corpus() -> bytes:
     return bench.make_corpus(2)
 
 
-def _kernel_path() -> None:
-    """Make this process take the reference's TPU kernel branches."""
+def _kernel_path(matcher: str = "sort") -> None:
+    """Make this process take the reference's TPU kernel branches, with
+    the sort or the hash matcher."""
     os.environ["LIBFLATE_PALLAS_INTERPRET"] = "1"
-    os.environ["LIBFLATE_DEVICE_MATCHER"] = "sort"
+    os.environ["LIBFLATE_DEVICE_MATCHER"] = matcher
     import functools
     import types
 
@@ -110,13 +127,34 @@ def _kernel_path() -> None:
     pgzf.np.concatenate = concatenate
 
 
-def encode(data: bytes, member: int) -> bytes:
-    _kernel_path()
+def encode(data: bytes, member: int, options: dict | None = None,
+           matcher: str = "sort") -> bytes:
+    """The reference's device encode of ``data``; ``options`` are the
+    fields of its ``EncodeOptions``."""
+    _kernel_path(matcher)
     from libflate_tpu.formats import pgzf
-    stream = pgzf.compress(data, member_size=member, engine="tpu")
+    from libflate_tpu.serial.deflate import EncodeOptions
+    opts = EncodeOptions(**options) if options else None
+    stream = pgzf.compress(data, member_size=member, options=opts,
+                           engine="tpu")
     if gzip.decompress(stream) != data:
         raise SystemExit("stdlib gzip disagrees with the reference stream")
     return stream
+
+
+#: the quality mode of the reference's bench (``bench.py:280-283``)
+CHAIN8 = {"matcher": "chain", "max_chain": 8, "lcp_rounds": 8}
+#: name -> (file, corpus, member size, EncodeOptions fields, matcher)
+STREAMS = {
+    "small": (SMALL, small_corpus, SMALL_MEMBER, None, "sort"),
+    "chain8_small": (DATA / "pgzf_encode_chain8_small.pgz", small_corpus,
+                     SMALL_MEMBER, CHAIN8, "sort"),
+    "hash_small": (DATA / "pgzf_encode_hash_small.pgz", small_corpus,
+                   SMALL_MEMBER, None, "hash"),
+}
+#: written under --limit in a child process: one batch of 8 KiB members
+CHAIN8_8K = (DATA / "pgzf_encode_chain8_w2048_8k.pgz", 8192,
+             {**CHAIN8, "window_size": 2048})
 
 
 def _write(path: pathlib.Path, stream: bytes, seconds: float) -> None:
@@ -126,40 +164,61 @@ def _write(path: pathlib.Path, stream: bytes, seconds: float) -> None:
           flush=True)
 
 
-def _child(member: int, out: str) -> None:
-    pathlib.Path(out).write_bytes(encode(big_corpus(), member))
+def _child(member: int, out: str, options: dict | None) -> None:
+    data = big_corpus()
+    if options:
+        data = data[:128 * member]
+    pathlib.Path(out).write_bytes(encode(data, member, options))
+
+
+def _run_limited(path: pathlib.Path, members, options, limit: float) -> bool:
+    """Write ``path`` at the first member size that finishes in
+    ``limit`` seconds; False if none does."""
+    tmp = path.with_suffix(".tmp")
+    for member in members:
+        t = time.perf_counter()
+        proc = mp.get_context("spawn").Process(
+            target=_child, args=(member, str(tmp), options))
+        proc.start()
+        proc.join(limit)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            print(f"{path.name} member_size {member}: not done in "
+                  f"{limit:.0f} s", flush=True)
+            continue
+        if proc.exitcode == 0:
+            print(f"member_size {member}:", end=" ")
+            _write(path, tmp.read_bytes(), time.perf_counter() - t)
+            tmp.unlink()
+            return True
+        raise SystemExit(f"member_size {member}: exit {proc.exitcode}")
+    return False
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--big", action="store_true")
+    ap.add_argument("names", nargs="*", default=["small"],
+                    choices=sorted(STREAMS),
+                    help="small streams to write (default: small)")
+    ap.add_argument("--big", action="store_true",
+                    help="also the zipf stream, largest member size first")
+    ap.add_argument("--chain-8k", action="store_true",
+                    help="also one batch of 8 KiB members in chain-8 "
+                    "quality mode with window_size=2048")
     ap.add_argument("--limit", type=float, default=1200.0)
     args = ap.parse_args()
-    t = time.perf_counter()
-    _write(SMALL, encode(small_corpus(), SMALL_MEMBER),
-           time.perf_counter() - t)
-    if not args.big:
-        return
-    tmp = BIG.with_suffix(".tmp")
-    for member in (65536, 16384, 8192, 4096):
+    for name in args.names:
+        path, corpus, member, options, matcher = STREAMS[name]
         t = time.perf_counter()
-        proc = mp.get_context("spawn").Process(target=_child,
-                                               args=(member, str(tmp)))
-        proc.start()
-        proc.join(args.limit)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-            print(f"member_size {member}: not done in {args.limit:.0f} s",
-                  flush=True)
-            continue
-        if proc.exitcode == 0:
-            print(f"member_size {member}:", end=" ")
-            _write(BIG, tmp.read_bytes(), time.perf_counter() - t)
-            tmp.unlink()
-            return
-        raise SystemExit(f"member_size {member}: exit {proc.exitcode}")
-    raise SystemExit("no member size finished in time")
+        _write(path, encode(corpus(), member, options, matcher),
+               time.perf_counter() - t)
+    if args.chain_8k:
+        path, member, options = CHAIN8_8K
+        _run_limited(path, (member,), options, args.limit)
+    if args.big and not _run_limited(BIG, (65536, 16384, 8192, 4096), None,
+                                     args.limit):
+        raise SystemExit("no member size finished in time")
 
 
 if __name__ == "__main__":

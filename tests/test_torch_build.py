@@ -36,9 +36,18 @@ def test_sources_are_the_three_kernels():
 
 
 def test_sources_are_the_seven_kernel_files():
+    """The seven sources of the decode and default-encode main paths
+    (the encode options' three are pinned by the next test)."""
+    names = {s.name for s in _build.sources()}
+    assert {"fields.cu", "match.cu", "pack.cu", "parse.cu", "rank.cu",
+            "resolve.cu", "sync_decode.cu"} <= names
+
+
+def test_sources_are_the_ten_kernel_files():
     names = sorted(s.name for s in _build.sources())
-    assert names == ["fields.cu", "match.cu", "pack.cu", "parse.cu",
-                     "rank.cu", "resolve.cu", "sync_decode.cu"]
+    assert names == ["fields.cu", "gather.cu", "hash.cu", "lcp.cu",
+                     "match.cu", "pack.cu", "parse.cu", "rank.cu",
+                     "resolve.cu", "sync_decode.cu"]
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

@@ -17,8 +17,9 @@ import torch
 
 from libflate_tpu_torch.formats import pgzf
 from libflate_tpu_torch.ops import (deflate_encode, device_expand, expand,
-                                    fields, hist, pack, parse, pipeline,
-                                    rank)
+                                    fields, gather, hist, lcp, pack, parse,
+                                    pipeline, rank)
+from libflate_tpu_torch.ops import hash_match as hm
 from libflate_tpu_torch.ops import sort_match as sm
 from libflate_tpu_torch.ops import sync_decode as sd
 
@@ -261,4 +262,110 @@ def test_compress_on_cuda_matches_reference_stream(dev, monkeypatch, name,
         monkeypatch.setattr(mod, fn, lambda *a, **k: (_ for _ in ()).throw(
             AssertionError("a CUDA tensor reached a plain version")))
     assert pgzf.compress(plain, member_size=member, device="cuda") == ref
+    assert all(k.launches > b for k, b in zip(kernels, before))
+
+
+# ---- encode options: LCP, gather and hash kernels ---------------------------
+
+
+@pytest.fixture(scope="module")
+def lcp_rows(dev):
+    """8 members of 64 KiB of the zipf text, with their sort candidates
+    at window 32768 (a fifth moved to random earlier positions) and the
+    exact prefixes."""
+    plain = gzip.decompress((DATA / "pgzf_sync_zipf_2m.pgz").read_bytes())
+    n = 65536
+    rows = torch.frombuffer(bytearray(plain[:8 * n]),
+                            dtype=torch.uint8).view(8, n).to(dev)
+    cand, m4 = sm.sort_candidates(rows)
+    g = torch.Generator(device=dev).manual_seed(3)
+    pos = torch.arange(n, device=dev)[None, :].expand(8, n)
+    moved = torch.rand((8, n), generator=g, device=dev) < 0.2
+    rnd = (torch.rand((8, n), generator=g, device=dev) * pos).int()
+    cand = torch.where(moved & (pos > 0), rnd, cand)
+    nv = torch.tensor([n] * 7 + [40000], dtype=torch.int32, device=dev)
+    return rows, nv, cand, m4
+
+
+@pytest.mark.parametrize("n,window", [(16384, 4096), (65536, 32768),
+                                      (65536, 8192)])
+@pytest.mark.parametrize("with_m4", [False, True])
+def test_lcp_kernel_matches_plain(lcp_rows, n, window, with_m4):
+    rows, nv, cand, m4 = lcp_rows
+    args = (rows[:, :n].contiguous(), cand[:, :n].contiguous(),
+            nv.clamp(max=n))
+    kw = ({"max_rounds": 8, "window": window, "m4": m4[:, :n].contiguous(),
+           "m_exact": sm.M_EXACT} if with_m4
+          else {"max_rounds": 6, "window": window})
+    got = lcp.match_lengths(*args, **kw)
+    assert got.is_cuda
+    _eq(got, lcp.match_lengths_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("window", [None, 2048])
+def test_gather_kernel_matches_plain(lcp_rows, window):
+    _rows, _nv, cand, _m4 = lcp_rows
+    idx = cand.clone()
+    idx[:, 5::97] = cand.shape[1] + 7
+    _eq(gather.gather_rows(cand, idx, window),
+        gather.gather_rows_plain(cand, idx, window))
+
+
+def test_hash_kernel_matches_plain(lcp_rows):
+    rows, _nv, _cand, _m4 = lcp_rows
+    h = hm.keys_hashes(rows[:, :8192])
+    g = torch.Generator(device=rows.device).manual_seed(5)
+    few = (torch.randint(0, 3, h[4:].shape, generator=g, device=rows.device)
+           * 8 + torch.randint(0, 3, h[4:].shape, generator=g,
+                               device=rows.device))
+    h[4:] = few | (torch.randint(0, 2, h[4:].shape, generator=g,
+                                 device=rows.device) << hm.B_BITS)
+    got = hm.hash_candidates(h)
+    assert got.is_cuda
+    _eq(got, hm.hash_candidates_plain(h))
+
+
+@pytest.mark.parametrize("matcher,knobs", [
+    ("sort", {"lcp_rounds": 8}), ("sort", {"chain": 8, "lcp_rounds": 8}),
+    ("sort", {"chain": 3, "window": 2048, "lazy": False}),
+    ("hash", {}), ("hash", {"chain": 4})])
+def test_lengths_stage_on_cuda_matches_cpu(enc_batch, matcher, knobs):
+    blocks, nv = enc_batch
+    if matcher == "hash":
+        cand, m4 = hm.prefix_candidates(blocks,
+                                        knobs.get("window", 32768)), None
+    else:
+        cand, m4 = sm.sort_candidates(blocks, knobs.get("window", 32768))
+    got = pipeline.lengths_stage(blocks, nv, cand, m4, **knobs)
+    want = pipeline.lengths_stage(
+        blocks.cpu(), nv.cpu(), cand.cpu(),
+        None if m4 is None else m4.cpu(), **knobs)
+    for a, b in zip(got, want):
+        _eq(a.cpu(), b)
+
+
+@pytest.mark.parametrize("name,member,options,matcher", [
+    ("pgzf_encode_chain8_small.pgz", 1024,
+     {"matcher": "chain", "max_chain": 8, "lcp_rounds": 8}, "sort"),
+    ("pgzf_encode_chain8_w2048_8k.pgz", 8192,
+     {"matcher": "chain", "max_chain": 8, "lcp_rounds": 8,
+      "window_size": 2048}, "sort"),
+    ("pgzf_encode_hash_small.pgz", 1024, None, "hash")])
+def test_compress_options_on_cuda_match_reference_streams(
+        dev, monkeypatch, name, member, options, matcher):
+    from libflate_tpu_torch.serial.deflate import EncodeOptions
+    monkeypatch.setenv("LIBFLATE_DEVICE_MATCHER", matcher)
+    ref = (DATA / name).read_bytes()
+    kernels = ((lcp.match_lengths,)
+               + ((gather.gather_rows,) if options else ())
+               + ((hm.hash_candidates,) if matcher == "hash" else ()))
+    before = [k.launches for k in kernels]
+    for mod, fn in ((lcp, "match_lengths_plain"),
+                    (gather, "gather_rows_plain"),
+                    (hm, "hash_candidates_plain")):
+        monkeypatch.setattr(mod, fn, lambda *a, **k: (_ for _ in ()).throw(
+            AssertionError("a CUDA tensor reached a plain version")))
+    opts = EncodeOptions(**options) if options else None
+    assert pgzf.compress(gzip.decompress(ref), member_size=member,
+                         options=opts, device="cuda") == ref
     assert all(k.launches > b for k, b in zip(kernels, before))

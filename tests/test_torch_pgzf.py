@@ -161,6 +161,13 @@ out, lengths = pgzf.decompress_to_device(open(sys.argv[1], "rb").read(),
 data = bytes(range(256)) * 8 + b"abc" * 2000
 import gzip
 assert gzip.decompress(pgzf.compress(data, 1024, device="cpu")) == data
+from libflate_tpu_torch.serial.deflate import EncodeOptions
+chain8 = EncodeOptions(matcher="chain", max_chain=8, lcp_rounds=8)
+assert gzip.decompress(pgzf.compress(data, 1024, options=chain8,
+                                     device="cpu")) == data
+import os
+os.environ["LIBFLATE_DEVICE_MATCHER"] = "hash"
+assert gzip.decompress(pgzf.compress(data, 1024, device="cpu")) == data
 blocked = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "libflate_tpu")]
 assert not blocked, blocked
@@ -169,8 +176,9 @@ print(len(mods), int(lengths.sum()))
 
 
 def test_imports_and_runs_with_jax_blocked(small):
-    """Every port module and chip_smoke.py import, decode and encode with
-    both JAX and the reference package blocked."""
+    """Every port module and chip_smoke.py import, decode and encode (by
+    default, in chain-8 quality mode and with the hash matcher) with both
+    JAX and the reference package blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
