@@ -7,16 +7,23 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
    no CUDA means exit 1 before anything runs;
-2. build the ten CUDA sources from ``libflate_tpu_torch/csrc`` with one
-   nvcc per source, all at once, for sm_90a;
+2. build the eleven CUDA sources from ``libflate_tpu_torch/csrc`` with
+   one nvcc per source, all at once, for sm_90a;
 3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
    a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
    gzip is the oracle; the host staging time is printed;
 4. each decode kernel against its plain PyTorch version on the card, at
    the shard's own shapes: tokens, (src, lit) and bytes must be identical;
+   4b. the speculative decode's four kernels against their plain versions
+   on the first group (128 members) of the shard with its LS index
+   stripped (``strip_sync_index``), at the main path's shapes, and
+   ``gather_two`` (on no path) at B = 128, R = N = 512, bit-exact;
 5. the decode main path ``decompress_to_device(verify=True,
    device="cuda")``, counted: plaintext equal to the oracle, every
    member's CRC checked, and each decode kernel's launch count above 0;
+   5b. the speculative main path: the stripped shard through the same
+   call, counted: each speculative kernel once per group of 128 members
+   (8), the sync kernel never, rows equal to the sync path's and gzip's;
 6. encode input: that 64 MiB plaintext, 8 batches of 128 members of
    64 KiB; each encode kernel against its plain version on the card at
    the first batch's full shapes (128 x 65536), bit-exact;
@@ -32,14 +39,18 @@ Phases, each of which raises on failure (exit code != 0):
    and ``gather_rows``, and (7c) the hash profile
    (``LIBFLATE_DEVICE_MATCHER=hash``, all 8 batches) with
    ``hash_candidates`` and ``match_lengths``, each ratio beside the
-   default's;
+   default's; (7d) the default encode with its LS index stripped through
+   the speculative path, counted as in 5b;
 8. byte identity with every committed reference stream
    (``tests/data/pgzf_encode_*.pgz``, written by the JAX reference, each
    with the options and matcher it was written with);
 9. timing with CUDA events (kernels, plain versions, yardsticks, the
-   chains of the three encode modes) and on the host clock (the
-   end-to-end calls, host staging split out), each with the card's name
-   and power limit.
+   sync and speculative decode chains, the chains of the three encode
+   modes) and on the host clock (the end-to-end calls, host staging split
+   out), each with the card's name and power limit.
+
+Kernels are keyed by module and function (``parse.walk_emit`` and
+``decode.walk_emit`` are two kernels).
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -94,6 +105,21 @@ def device_matcher(name: str):
             os.environ["LIBFLATE_DEVICE_MATCHER"] = old
 
 
+def strip_sync_index(stream: bytes) -> bytes:
+    """``stream`` with the "LS" sync index taken out of every member
+    header: each member gets the plain LF-indexed header and its LF size
+    is patched; bodies and trailers stay as they are.  Such a stream
+    takes ``decompress_to_device``'s speculative path."""
+    from libflate_tpu_torch.formats import pgzf
+    out = bytearray()
+    for ref in pgzf.index_members(stream):
+        member = bytearray(pgzf._member_header(0))
+        member += stream[ref.body:ref.end]
+        struct.pack_into("<I", member, pgzf._SIZE_OFFSET, len(member))
+        out += member
+    return bytes(out)
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -117,6 +143,12 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def kname(fn) -> str:
+    """A kernel wrapper's key: its module's last name and its own
+    (``parse.walk_emit`` and ``decode.walk_emit`` are two kernels)."""
+    return f"{fn.__module__.rsplit('.', 1)[-1]}.{fn.__name__}"
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -134,10 +166,10 @@ def main() -> None:
         sys.exit("chip_smoke: CUDA is not available")
     from libflate_tpu_torch import _build
     from libflate_tpu_torch.formats import pgzf
-    from libflate_tpu_torch.ops import (checksum, deflate_encode,
-                                        device_expand, expand, fields,
-                                        gather, hist, lcp, pack, parse,
-                                        pipeline, rank)
+    from libflate_tpu_torch.ops import (checksum, decode, deflate_decode,
+                                        deflate_encode, device_expand,
+                                        expand, fields, gather, hist, lcp,
+                                        pack, parse, pipeline, rank)
     from libflate_tpu_torch.ops import hash_match as hm
     from libflate_tpu_torch.ops import sort_match as sm
     from libflate_tpu_torch.ops import sync_decode as sd
@@ -193,10 +225,10 @@ def main() -> None:
     out = expand.resolve_bytes(src, lit)
     out_p = expand.resolve_bytes_plain(src, lit)
     torch.cuda.synchronize()
-    errs = {"sync_decode": max_abs_err(toks, toks_plain),
-            "rank_emit_src": max(max_abs_err(src, src_p),
-                                 max_abs_err(lit, lit_p)),
-            "resolve_bytes": max_abs_err(out, out_p)}
+    errs = {kname(sd.sync_decode): max_abs_err(toks, toks_plain),
+            kname(rank.rank_emit_src): max(max_abs_err(src, src_p),
+                                           max_abs_err(lit, lit_p)),
+            kname(expand.resolve_bytes): max_abs_err(out, out_p)}
     log(f"decode kernels vs plain at slots={toks.shape[0]} K={g['k_tok']} "
         f"root_bits={g['root_bits']} members={bsz} member_cap={cap}: "
         f"max_abs_err {errs}")
@@ -205,18 +237,87 @@ def main() -> None:
                              f"{errs}")
     del toks_plain, src_p, lit_p, out_p
 
+    # 4b. the speculative decode's kernels against their plain versions on
+    # the first group (128 members) of the shard with its LS index
+    # stripped, at the main path's shapes; gather_two at B = 128, R = N =
+    # 512 on random tables (nothing calls it on a path)
+    spec_stream = strip_sync_index(stream)
+    spec_refs = pgzf.index_members(spec_stream)
+    spec_stage_s = []
+    for _ in range(3):
+        t = time.perf_counter()
+        spec_groups = list(pgzf._spec_groups(spec_stream, spec_refs, dev))
+        torch.cuda.synchronize()
+        spec_stage_s.append(time.perf_counter() - t)
+    st = spec_groups[0]
+    sp_args = (st["words"], st["lit_t"], st["dist_t"])
+    s_tok, s_nxt = decode.speculative_decode_positions(*sp_args)
+    s_tok_p, s_nxt_p = decode.speculative_decode_positions_plain(*sp_args)
+    s_ex = decode.chunk_exit_maps(s_nxt)
+    s_ex_p = decode.chunk_exit_maps_plain(s_nxt)
+    s_ent = deflate_decode.chain_entries(s_ex, st["starts"])
+    s_ent_p = deflate_decode.chain_entries_plain(s_ex, st["starts"])
+    s_emit = decode.walk_emit(s_nxt, s_tok, s_ent)
+    s_emit_p = decode.walk_emit_plain(s_nxt, s_tok, s_ent)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    g2_b, g2_r, g2_win = 128, 512, 16
+    g2_tabs = [torch.randint(-2**31, 2**31 - 1, (g2_b, g2_r, 128),
+                             generator=gen, device=dev, dtype=torch.int64)
+               .to(torch.int32) for _ in range(2)]
+    g2_lo = (torch.randint(0, (g2_r - g2_win) // 8 + 1, (g2_b, g2_r // 8),
+                           generator=gen, device=dev) * 8).to(torch.int32)
+    g2_idx = ((g2_lo.repeat_interleave(8, dim=1)[:, :, None]
+               + torch.randint(-2, g2_win + 2, (g2_b, g2_r, 128),
+                               generator=gen, device=dev)) * 128
+              + torch.randint(0, 128, (g2_b, g2_r, 128), generator=gen,
+                              device=dev)).to(torch.int32)
+    g2_args = (*g2_tabs, g2_idx, g2_lo)
+    g2 = gather.gather_two(*g2_args, win=g2_win)
+    g2_p = gather.gather_two_plain(*g2_args, win=g2_win)
+    torch.cuda.synchronize()
+    spec_errs = {
+        kname(decode.speculative_decode_positions): max(
+            max_abs_err(s_tok, s_tok_p), max_abs_err(s_nxt, s_nxt_p)),
+        kname(decode.chunk_exit_maps): max_abs_err(s_ex, s_ex_p),
+        kname(deflate_decode.chain_entries): max_abs_err(s_ent, s_ent_p),
+        kname(decode.walk_emit): max_abs_err(s_emit, s_emit_p),
+        kname(gather.gather_two): max(max_abs_err(x, y)
+                                      for x, y in zip(g2, g2_p))}
+    errs.update(spec_errs)
+    s_rows = s_emit.view(s_emit.shape[0], -1, decode.EMIT_ROWS)
+    log(f"speculative decode kernels vs plain at members={s_tok.shape[0]} "
+        f"words={st['words'].shape[1]} positions={s_tok.shape[1]} "
+        f"chunks={s_ent.shape[1]}; gather_two at B={g2_b} R=N={g2_r} "
+        f"win={g2_win}: max_abs_err {spec_errs} (tokens emitted "
+        f"{int((s_rows[:, :, :decode.MAX_EMIT] >= 0).sum())}, overflowed "
+        f"chunks {int((s_rows[:, :, decode.MAX_EMIT] != 0).sum())}, "
+        f"gather_two hits {int((g2_p[0] != 0).sum())} of {g2_idx.numel()})")
+    log(f"speculative host staging (_spec_groups: block-header parse of "
+        f"{len(spec_refs)} members, {len(spec_groups)} groups of word rows, "
+        f"upload): {statistics.median(spec_stage_s) * 1e3:.2f} ms median "
+        f"of 3")
+    if any(spec_errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: "
+                             f"{spec_errs}")
+    del s_tok_p, s_nxt_p, s_ex_p, s_ent_p, s_emit_p, g2_p
+
     # 5. the decode main path, counted
     dec_kernels = (sd.sync_decode, rank.rank_emit_src, expand.resolve_bytes)
     enc_kernels = (sm.sort_keys, sm.scan_emit, parse.chunk_exits,
                    parse.walk_emit, hist.token_hist, fields.token_fields,
                    pack.pack_stitch)
     opt_kernels = (lcp.match_lengths, gather.gather_rows, hm.hash_candidates)
-    for k in dec_kernels + enc_kernels + opt_kernels:
+    spec_kernels = (decode.speculative_decode_positions,
+                    decode.chunk_exit_maps, deflate_decode.chain_entries,
+                    decode.walk_emit)
+    all_kernels = (dec_kernels + enc_kernels + opt_kernels + spec_kernels
+                   + (gather.gather_two,))
+    for k in all_kernels:
         k.launches = 0
     plain_dev, lengths = pgzf.decompress_to_device(stream, verify=True,
                                                    device="cuda")
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in dec_kernels}
+    launches = {kname(k): k.launches for k in dec_kernels}
     log(f"decode main path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path did not run: {launches}")
@@ -231,6 +332,42 @@ def main() -> None:
         raise AssertionError("nonzero bytes past a member's length")
     log(f"decode main path: {len(oracle)} bytes equal to stdlib gzip, "
         f"{bsz} member CRCs verified on the port")
+
+    def spec_main_path(synced: bytes, plain: bytes, sync_rows, what: str):
+        """decompress_to_device of ``synced`` with its LS index stripped,
+        counted: each speculative kernel once per group of 128 members,
+        the sync kernel never; the rows equal the sync path's and gzip's.
+        Returns the counts."""
+        stripped = strip_sync_index(synced)
+        n_groups = -(-len(pgzf.index_members(stripped)) // pgzf.DEV_BATCH)
+        for k in all_kernels:
+            k.launches = 0
+        rows, lens = pgzf.decompress_to_device(stripped, verify=True,
+                                               device="cuda")
+        torch.cuda.synchronize()
+        counts = {kname(k): k.launches for k in spec_kernels}
+        log(f"{what} launches: {counts}, sync_decode "
+            f"{sd.sync_decode.launches}")
+        if (set(counts.values()) != {n_groups}
+                or sd.sync_decode.launches != 0):
+            raise AssertionError(f"expected each speculative kernel "
+                                 f"{n_groups} times and no sync decode")
+        if not torch.equal(rows, sync_rows):
+            raise AssertionError(f"{what}: rows differ from the sync path's")
+        live_ = (torch.arange(rows.shape[1], device=dev)[None, :]
+                 < lens.to(torch.int64)[:, None])
+        if bytes(rows[live_].cpu().numpy()) != plain:
+            raise AssertionError(f"{what}: plaintext differs from gzip's")
+        if bool(rows[~live_].any()):
+            raise AssertionError(f"{what}: nonzero bytes past a length")
+        log(f"{what}: {len(stripped)} stream bytes without the LS index "
+            f"-> {len(plain)} bytes equal to stdlib gzip and to the sync "
+            f"path's rows, {rows.shape[0]} member CRCs verified")
+        return counts
+
+    # 5b. the speculative main path on the shard, LS index stripped
+    launches.update(spec_main_path(stream, oracle, plain_dev,
+                                   "speculative decode main path"))
     del plain_dev, live
 
     # 6. encode kernels against their plain versions, first batch
@@ -274,18 +411,22 @@ def main() -> None:
     words = pack.pack_stitch(values, widths, cstarts, w_out)
     words_p = pack.pack_stitch_plain(values, widths, cstarts, w_out)
     torch.cuda.synchronize()
-    errs.update({
-        "sort_keys": max(max_abs_err(sk, sk_p), max_abs_err(sp, sp_p)),
-        "scan_emit": max(max_abs_err(cand, cand_p), max_abs_err(m4, m4_p)),
-        "chunk_exits": max_abs_err(ex, ex_p),
-        "walk_emit": max(max_abs_err(slots, slots_p),
-                         max_abs_err(ovf, ovf_p)),
-        "token_hist": max_abs_err(bins, bins_p),
-        "token_fields": max(max_abs_err(x, y) for x, y in zip(fv, fv_p)),
-        "pack_stitch": max_abs_err(words, words_p)})
+    enc_errs = {
+        kname(sm.sort_keys): max(max_abs_err(sk, sk_p),
+                                 max_abs_err(sp, sp_p)),
+        kname(sm.scan_emit): max(max_abs_err(cand, cand_p),
+                                 max_abs_err(m4, m4_p)),
+        kname(parse.chunk_exits): max_abs_err(ex, ex_p),
+        kname(parse.walk_emit): max(max_abs_err(slots, slots_p),
+                                    max_abs_err(ovf, ovf_p)),
+        kname(hist.token_hist): max_abs_err(bins, bins_p),
+        kname(fields.token_fields): max(max_abs_err(x, y)
+                                        for x, y in zip(fv, fv_p)),
+        kname(pack.pack_stitch): max_abs_err(words, words_p)}
+    errs.update(enc_errs)
     log(f"encode kernels vs plain at members={n_b} n={ms_enc} "
         f"slots={a.shape[1]} fields={values.shape[1]} words={w_out}: "
-        f"max_abs_err { {k: errs[k] for k in errs if k not in launches} } "
+        f"max_abs_err {enc_errs} "
         f"(tokens {int(valid.sum())}, overflow {bool(ovf.any())})")
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: "
@@ -313,15 +454,15 @@ def main() -> None:
     level2_p = gather.gather_rows_plain(cand, cand, window=32768)
     torch.cuda.synchronize()
     errs.update({
-        "match_lengths": max(max_abs_err(ln8, ln8_p),
-                             max_abs_err(ln6, ln6_p)),
-        "gather_rows": max_abs_err(level2, level2_p),
-        "hash_candidates": max_abs_err(hcand_raw, hcand_raw_p)})
+        kname(lcp.match_lengths): max(max_abs_err(ln8, ln8_p),
+                                      max_abs_err(ln6, ln6_p)),
+        kname(gather.gather_rows): max_abs_err(level2, level2_p),
+        kname(hm.hash_candidates): max_abs_err(hcand_raw, hcand_raw_p)})
     log(f"option kernels vs plain at members={n_b} n={ms_enc}: "
         f"match_lengths (sort m4, 8 rounds, window 8192; hash cand, 6 "
-        f"rounds, window 32768) {errs['match_lengths']}, gather_rows "
-        f"(chain level 2) {errs['gather_rows']}, hash_candidates "
-        f"{errs['hash_candidates']} (lengths > 16: "
+        f"rounds, window 32768) {errs['lcp.match_lengths']}, gather_rows "
+        f"(chain level 2) {errs['gather.gather_rows']}, hash_candidates "
+        f"{errs['hash_match.hash_candidates']} (lengths > 16: "
         f"{int((ln8 > 16).sum())}; hash cand >= 0: "
         f"{int((hcand >= 0).sum())}; level-2 cand >= 0: "
         f"{int((level2 >= 0).sum())})")
@@ -331,11 +472,11 @@ def main() -> None:
     del ln8_p, ln6_p, level2_p, hcand_raw_p
 
     # 7. the encode main path, counted
-    for k in dec_kernels + enc_kernels + opt_kernels:
+    for k in all_kernels:
         k.launches = 0
     enc_stream = pgzf.compress(data, member_size=ms_enc, device="cuda")
     torch.cuda.synchronize()
-    enc_launches = {k.__name__: k.launches for k in enc_kernels}
+    enc_launches = {kname(k): k.launches for k in enc_kernels}
     launches.update(enc_launches)
     log(f"encode main path launches: {enc_launches}")
     if min(enc_launches.values()) < 1:
@@ -350,11 +491,14 @@ def main() -> None:
     if bytes(back[live].cpu().numpy()) != data:
         raise AssertionError("the port's decode does not read back the "
                              "encode")
-    del back, live
     ratio = len(enc_stream) / len(data)
     log(f"encode main path: {len(data)} bytes -> {len(enc_stream)} bytes "
         f"(ratio {ratio:.6f}), read back by stdlib gzip and by "
         f"decompress_to_device(verify=True)")
+    # 7d. the speculative main path on the encode, LS index stripped
+    spec_main_path(enc_stream, data, back,
+                   "speculative decode of the default encode")
+    del back, live
 
     def read_back(stream: bytes, what: str) -> None:
         if gzip.decompress(stream) != data:
@@ -368,13 +512,13 @@ def main() -> None:
                                  f"{what}")
 
     def run_counted(kernels, what: str, **kw) -> bytes:
-        for k in dec_kernels + enc_kernels + opt_kernels:
+        for k in all_kernels:
             k.launches = 0
         with device_matcher(kw.pop("matcher", "sort")):
             stream = pgzf.compress(data, member_size=ms_enc, device="cuda",
                                    **kw)
         torch.cuda.synchronize()
-        counts = {k.__name__: k.launches for k in kernels}
+        counts = {kname(k): k.launches for k in kernels}
         log(f"{what} launches: {counts}")
         if min(counts.values()) < 1:
             raise AssertionError(f"a kernel of the path did not run: "
@@ -391,13 +535,15 @@ def main() -> None:
                            "quality mode (chain 8, lcp_rounds 8)",
                            options=quality)
     for k in (lcp.match_lengths, gather.gather_rows):
-        launches[k.__name__] = k.launches
+        launches[kname(k)] = k.launches
     # 7c. the hash profile at full depth (8 batches), counted
     h_stream = run_counted(enc_kernels[2:] + (hm.hash_candidates,
                                               lcp.match_lengths),
                            "hash profile (LIBFLATE_DEVICE_MATCHER=hash, 8 "
                            "batches)", matcher="hash")
-    launches["hash_candidates"] = hm.hash_candidates.launches
+    launches[kname(hm.hash_candidates)] = hm.hash_candidates.launches
+    # nothing calls gather_two: 0 in every run
+    launches[kname(gather.gather_two)] = gather.gather_two.launches
 
     # 8. byte identity with the committed reference streams
     refs = sorted(DATA.glob("pgzf_encode_*.pgz"))
@@ -432,92 +578,128 @@ def main() -> None:
         walls.append(time.perf_counter() - t)
     e2e_s = statistics.median(walls)
 
+    spec_src = "libflate_tpu_torch/csrc/spec_decode.cu"
+    n_chunks = s_ent.shape[1]
+    entered = int(((s_ent.to(torch.int64) >> 9)
+                   == torch.arange(n_chunks, device=dev)[None, :]).sum())
+    emitted = int((s_rows[:, :, :decode.MAX_EMIT] >= 0).sum())
     sym = torch.cat([
         torch.where(b > 0, hist.length_symbol(a.clamp(3, 258)), a)[valid],
         hist.DIST_BIN0 + hist.dist_symbol(b[valid & (b > 0)])])
     rows = [
         # name, source, replaces, kernel, plain, library, bytes, reps
-        ("sync_decode", "libflate_tpu_torch/csrc/sync_decode.cu",
+        (kname(sd.sync_decode), "libflate_tpu_torch/csrc/sync_decode.cu",
          "libflate_tpu/ops/pallas_sync_decode.py:80",
          lambda: sd.sync_decode(*sd_args),
          lambda: sd.sync_decode_plain(*sd_args), None,
          nbytes(*sd_args[:5], toks), 20, 2),
-        ("rank_emit_src", "libflate_tpu_torch/csrc/rank.cu",
+        (kname(rank.rank_emit_src), "libflate_tpu_torch/csrc/rank.cu",
          "libflate_tpu/ops/pallas_rank.py:150",
          lambda: rank.rank_emit_src(*rk_args),
          lambda: rank.rank_emit_src_plain(*rk_args), None,
          nbytes(*rk_args[:4], src, lit), 20, 3),
-        ("resolve_bytes", "libflate_tpu_torch/csrc/resolve.cu",
+        (kname(expand.resolve_bytes), "libflate_tpu_torch/csrc/resolve.cu",
          "libflate_tpu/ops/pallas_expand.py:74",
          lambda: expand.resolve_bytes(src, lit),
          lambda: expand.resolve_bytes_plain(src, lit), None,
          nbytes(src, lit, out), 20, 3),
-        ("sort_keys", "libflate_tpu_torch/csrc/match.cu",
+        (kname(sm.sort_keys), "libflate_tpu_torch/csrc/match.cu",
          "libflate_tpu/ops/pallas_sort.py:66",
          lambda: sm.sort_keys(keys), lambda: sm.sort_keys_plain(keys),
          lambda: torch.sort(keys, dim=1, stable=True),
          nbytes(keys, sk, sp), 10, 3),
-        ("scan_emit", "libflate_tpu_torch/csrc/match.cu",
+        (kname(sm.scan_emit), "libflate_tpu_torch/csrc/match.cu",
          "libflate_tpu/ops/pallas_sort.py:212",
          lambda: sm.scan_emit(sk, sp, blocks),
          lambda: sm.scan_emit_plain(sk, sp, blocks), None,
          nbytes(sk, sp, blocks, cand, m4), 10, 3),
-        ("chunk_exits", "libflate_tpu_torch/csrc/parse.cu",
+        (kname(parse.chunk_exits), "libflate_tpu_torch/csrc/parse.cu",
          "libflate_tpu/ops/pallas_parse.py:57",
          lambda: parse.chunk_exits(jump),
          lambda: parse.chunk_exits_plain(jump), None,
          nbytes(jump, ex), 10, 2),
-        ("walk_emit", "libflate_tpu_torch/csrc/parse.cu",
+        (kname(parse.walk_emit), "libflate_tpu_torch/csrc/parse.cu",
          "libflate_tpu/ops/pallas_parse.py:143",
          lambda: parse.walk_emit(jump, tok, ex, pcap),
          lambda: parse.walk_emit_plain(jump, tok, ex, pcap), None,
          nbytes(jump, tok, ex, slots, ovf), 10, 2),
-        ("token_hist", "libflate_tpu_torch/csrc/fields.cu",
+        (kname(hist.token_hist), "libflate_tpu_torch/csrc/fields.cu",
          "libflate_tpu/ops/pallas_hist.py:46",
          lambda: hist.token_hist(a, b, valid),
          lambda: hist.token_hist_plain(a, b, valid),
          lambda: torch.bincount(sym, minlength=hist.BINS),
          nbytes(a, b, valid, bins), 20, 3),
-        ("token_fields", "libflate_tpu_torch/csrc/fields.cu",
+        (kname(fields.token_fields), "libflate_tpu_torch/csrc/fields.cu",
          "libflate_tpu/ops/pallas_fields.py:120",
          lambda: fields.token_fields(a_h, b, tables),
          lambda: fields.token_fields_plain(a_h, b, tables), None,
          nbytes(a_h, b, tables, *fv), 20, 3),
-        ("pack_stitch", "libflate_tpu_torch/csrc/pack.cu",
+        (kname(pack.pack_stitch), "libflate_tpu_torch/csrc/pack.cu",
          "libflate_tpu/ops/pallas_pack.py:61",
          lambda: pack.pack_stitch(values, widths, cstarts, w_out),
          lambda: pack.pack_stitch_plain(values, widths, cstarts, w_out),
          None, nbytes(values, widths, cstarts, words), 20, 3),
-        ("match_lengths", "libflate_tpu_torch/csrc/lcp.cu",
+        (kname(lcp.match_lengths), "libflate_tpu_torch/csrc/lcp.cu",
          "libflate_tpu/ops/pallas_lcp.py:72",
          lambda: lcp.match_lengths(*lcp_args, **lcp_kw),
          lambda: lcp.match_lengths_plain(*lcp_args, **lcp_kw), None,
          nbytes(blocks, cand, m4, nv, ln8), 20, 3),
-        ("gather_rows", "libflate_tpu_torch/csrc/gather.cu",
+        (kname(gather.gather_rows), "libflate_tpu_torch/csrc/gather.cu",
          "libflate_tpu/ops/pallas_gather.py:41",
          lambda: gather.gather_rows(cand, cand, window=32768),
          lambda: gather.gather_rows_plain(cand, cand, window=32768),
          lambda: torch.gather(cand, 1, cand_idx),
          nbytes(cand, cand, level2), 20, 3),
-        ("hash_candidates", "libflate_tpu_torch/csrc/hash.cu",
+        (kname(hm.hash_candidates), "libflate_tpu_torch/csrc/hash.cu",
          "libflate_tpu/ops/pallas_lz77.py:52",
          lambda: hm.hash_candidates(ids),
          lambda: hm.hash_candidates_plain(ids), None,
          nbytes(ids, hcand_raw), 10, 1),
+        (kname(decode.speculative_decode_positions), spec_src,
+         "libflate_tpu/ops/pallas_decode.py:96",
+         lambda: decode.speculative_decode_positions(*sp_args),
+         lambda: decode.speculative_decode_positions_plain(*sp_args), None,
+         nbytes(*sp_args, s_tok, s_nxt), 20, 3),
+        (kname(decode.chunk_exit_maps), spec_src,
+         "libflate_tpu/ops/pallas_decode.py:158",
+         lambda: decode.chunk_exit_maps(s_nxt),
+         lambda: decode.chunk_exit_maps_plain(s_nxt), None,
+         nbytes(s_nxt, s_ex), 20, 2),
+        # the reference's XLA scan, not a Pallas kernel; it reads one exit
+        # per chunk the orbit enters
+        (kname(deflate_decode.chain_entries), spec_src,
+         "libflate_tpu/ops/deflate_decode.py:374",
+         lambda: deflate_decode.chain_entries(s_ex, st["starts"]),
+         lambda: deflate_decode.chain_entries_plain(s_ex, st["starts"]),
+         None, 4 * entered + nbytes(st["starts"], s_ent), 20, 2),
+        # reads tok and nxt at each position the walks visit
+        (kname(decode.walk_emit), spec_src,
+         "libflate_tpu/ops/pallas_decode.py:271",
+         lambda: decode.walk_emit(s_nxt, s_tok, s_ent),
+         lambda: decode.walk_emit_plain(s_nxt, s_tok, s_ent), None,
+         8 * emitted + nbytes(s_ent, s_emit), 20, 2),
+        (kname(gather.gather_two), "libflate_tpu_torch/csrc/gather.cu",
+         "libflate_tpu/ops/pallas_gather.py:135",
+         lambda: gather.gather_two(*g2_args, win=g2_win),
+         lambda: gather.gather_two_plain(*g2_args, win=g2_win),
+         lambda: [torch.gather(t_, 1, g2_flat) for t_ in g2_flat_tabs],
+         nbytes(*g2_args, *g2), 20, 3),
     ]
     cand_idx = cand.to(torch.int64).clamp(min=0)
+    g2_flat = g2_idx.view(g2_b, -1).to(torch.int64).clamp(0, g2_r * 128 - 1)
+    g2_flat_tabs = [t_.view(g2_b, -1) for t_ in g2_tabs]
     summary = []
-    for kname, source, replaces, kfn, pfn, lfn, moved, reps, preps in rows:
+    for name_, source, replaces, kfn, pfn, lfn, moved, reps, preps in rows:
         ms = cuda_ms(kfn, reps)
         plain_ms = cuda_ms(pfn, preps)
         lib_ms = cuda_ms(lfn, reps) if lfn is not None else None
         bound = moved / HBM_BYTES_PER_MS
-        summary.append({"name": kname, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[kname],
-                        "max_abs_err": errs[kname], "ms": ms,
+        summary.append({"name": name_, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name_],
+                        "max_abs_err": errs[name_], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": "bytes", "library_ms": lib_ms})
-        log(f"{kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"{name_}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound:.4f} ms ({moved} bytes), library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
             f"[{card_line}]")
@@ -538,6 +720,62 @@ def main() -> None:
     log(f"end to end decompress_to_device(verify=True), host staging "
         f"included: {e2e_s * 1e3:.2f} ms median of 5, "
         f"{n_dec / e2e_s / 1e9:.3f} GB/s of plaintext [{card_line}]")
+
+    # the speculative path: its device chain over the 8 staged groups, one
+    # group's stages, and the end to end on the stripped shard
+    def spec_device_chain():
+        for grp in spec_groups:
+            packed, nt, _err = pgzf._spec_chain(
+                grp["words"], grp["lit_t"], grp["dist_t"], grp["starts"],
+                grp["out_cap"])
+            rows_, _n, _e = device_expand.expand_members(packed, nt,
+                                                         grp["out_cap"])
+            checksum.crc32_f_rows(rows_)
+
+    torch.cuda.reset_peak_memory_stats()
+    spec_chain_ms = cuda_ms(spec_device_chain, 5)
+    spec_peak = torch.cuda.max_memory_allocated()
+    spec_walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        pgzf.decompress_to_device(spec_stream, verify=True, device="cuda")
+        torch.cuda.synchronize()
+        spec_walls.append(time.perf_counter() - t)
+    spec_e2e_s = statistics.median(spec_walls)
+    spec_stage_ms = statistics.median(spec_stage_s) * 1e3
+    o_cap = st["out_cap"]
+    s_packed, s_nt, _ = deflate_decode.tokens_from_emit_packed(s_emit,
+                                                               o_cap + 2)
+    s_plain = device_expand.expand_members(s_packed, s_nt, o_cap)[0]
+    spec_stages = {
+        "speculative_decode_positions":
+            lambda: decode.speculative_decode_positions(*sp_args),
+        "chunk_exit_maps": lambda: decode.chunk_exit_maps(s_nxt),
+        "chain_entries": lambda: deflate_decode.chain_entries(
+            s_ex, st["starts"]),
+        "walk_emit": lambda: decode.walk_emit(s_nxt, s_tok, s_ent),
+        "tokens_from_emit_packed (torch glue)":
+            lambda: deflate_decode.tokens_from_emit_packed(s_emit,
+                                                           o_cap + 2),
+        "expand_members (glue, rank, resolve)":
+            lambda: device_expand.expand_members(s_packed, s_nt, o_cap),
+        "crc32_f_rows (torch glue)": lambda: checksum.crc32_f_rows(s_plain),
+    }
+    spec_breakdown = {k: cuda_ms(fn, 5) for k, fn in spec_stages.items()}
+    log(f"speculative device chain (4 kernels, compaction, expand, CRC "
+        f"f-values; {len(spec_groups)} groups): {spec_chain_ms:.4f} ms "
+        f"median of 5 per 64 MiB, {n_dec / spec_chain_ms / 1e6:.3f} GB/s of "
+        f"plaintext, peak {spec_peak / 2**20:.0f} MiB [{card_line}]")
+    log("speculative stages for one group of 128 members, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in spec_breakdown.items())
+        + f" [{card_line}]")
+    log(f"end to end decompress_to_device(verify=True) of the stripped "
+        f"shard: {spec_e2e_s * 1e3:.2f} ms median of 5, "
+        f"{n_dec / spec_e2e_s / 1e9:.3f} GB/s of plaintext; its host "
+        f"staging (_spec_groups) {spec_stage_ms:.2f} ms (median of 3 on its "
+        f"own), the rest {spec_e2e_s * 1e3 - spec_stage_ms:.2f} ms; the "
+        f"sync path "
+        f"{e2e_s * 1e3:.2f} ms in this run [{card_line}]")
 
     torch.cuda.reset_peak_memory_stats()
     batch_ms = cuda_ms(lambda: pipeline.encode_batch(blocks, nv, 256), 5)

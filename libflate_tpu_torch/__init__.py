@@ -1,8 +1,9 @@
 """libflate_tpu_torch — PyTorch + CUDA port of libflate_tpu's device path.
 
 The JAX package ``libflate_tpu`` is the reference; this package runs the
-PGZF device encode and the sync-indexed device decode on an NVIDIA
-Hopper card (sm_90a).  It imports nothing of ``libflate_tpu``: the host
+PGZF device encode and the device decode (sync-indexed, or speculative
+for shared-table streams without the sync index) on an NVIDIA Hopper
+card (sm_90a).  It imports nothing of ``libflate_tpu``: the host
 pieces it needs (gzip headers, the LF/LS subfields, block-header
 parsing, stored blocks, DEFLATE constants, CRC operators) are its own
 copies.  The layout mirrors the reference file by file:
@@ -12,7 +13,7 @@ copies.  The layout mirrors the reference file by file:
     ops/sort_match.py        content-sort LZ77 candidates  csrc/match.cu
     ops/hash_match.py        hash-table LZ77 candidates    csrc/hash.cu
     ops/lcp.py               capped match lengths          csrc/lcp.cu
-    ops/gather.py            per-member gather, chain step csrc/gather.cu
+    ops/gather.py            per-member gathers, chain step csrc/gather.cu
     ops/pipeline.py          batch encode, options (glue)
     ops/parse.py             greedy parse + emit           csrc/parse.cu
     ops/hist.py              batch symbol histogram        csrc/fields.cu
@@ -20,6 +21,8 @@ copies.  The layout mirrors the reference file by file:
     ops/pack.py              bit pack into member rows     csrc/pack.cu
     ops/huffman.py, ops/deflate_encode.py   codes and headers (host)
     ops/sync_decode.py       LS-chunk symbol decode        csrc/sync_decode.cu
+    ops/decode.py            speculative symbol decode     csrc/spec_decode.cu
+    ops/deflate_decode.py    chunk entries, compaction     csrc/spec_decode.cu
     ops/device_expand.py     expand_members (torch glue)
     ops/rank.py              rank + mod-collapse           csrc/rank.cu
     ops/expand.py            pointer chase to bytes        csrc/resolve.cu

@@ -40,6 +40,11 @@ _SIGNATURES = {
     "lf_match_lengths": "pppppiiiiip",
     "lf_gather_rows": "pppiiiip",
     "lf_hash_candidates": "ppiip",
+    "lf_gather_two": "ppppppiiiip",
+    "lf_spec_decode": "ppppppiip",
+    "lf_spec_chunk_exits": "ppiip",
+    "lf_spec_chain_entries": "pppiip",
+    "lf_spec_walk_emit": "ppppiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 

@@ -11,6 +11,9 @@ reference stages each chunk slot as a column of ``D`` words in its TPU
 layout ``(P, D*8, 128)``; the port reads one flat word stream with an
 absolute start bit per slot, so the columns are laid end to end and slot
 s starts at bit ``s*D*32 + sb[s]``.
+:func:`from_reference_spec_inputs` turns the inputs of the reference's
+speculative decode (``_spec_fused_jit``: lane-major words, tables, first
+symbols) into the port's member-major ones.
 :func:`from_reference_options` copies the reference's ``EncodeOptions``
 into the port's.  Nothing here imports JAX.
 """
@@ -51,6 +54,27 @@ def from_reference_group(prep: dict, device="cpu") -> dict:
                                 "member_cap", "isizes", "crcs_expected",
                                 "member0")},
     }
+
+
+def from_reference_spec_inputs(words, lit_t, dist_t, starts_g,
+                               n_members: int, device="cpu") -> dict:
+    """The reference's speculative-decode inputs -> the port's.
+
+    words (1, W, 128) uint32 (member k in lane k), lit_t (4096,), dist_t
+    (256,), starts_g (128,) -> a dict of ``words`` (n_members, W) int32,
+    ``lit_t``, ``dist_t`` int32 and ``starts`` (n_members,) int32 on
+    ``device``: the keyword arguments of ``formats.pgzf._spec_chain``
+    without ``out_cap``.  The padding lanes are dropped.
+    """
+    lanes = np.asarray(words).view(np.uint32)[0].T[:n_members]
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(device, torch.int32)
+
+    return {"words": tensor(lanes.view(np.int32)),
+            "lit_t": tensor(np.asarray(lit_t, np.int32)),
+            "dist_t": tensor(np.asarray(dist_t, np.int32)),
+            "starts": tensor(np.asarray(starts_g, np.int32)[:n_members])}
 
 
 def from_reference_options(options):

@@ -10,8 +10,12 @@ subfields, and the stored fallback for incompressible members.
 Decode: :func:`decompress_to_device` (``:752-825``) with
 ``_prepare_sync_device`` (``:973-1079``), ``_run_sync_chain`` (``:1082``)
 and ``_sync_to_plain`` (``:1116-1151``): sync decode -> expand_members ->
-CRC f-values.  Streams without the LS index (the reference's speculative
-and foreign-stream bridges) are not ported yet.
+CRC f-values.  Shared-table streams without the LS index take the
+speculative branch, ``_spec_to_device`` (``:935-970``) and
+``_spec_token_groups`` (``:1186-1261``, the fused jit ``:1154-1183`` as
+``_spec_chain``): position decode -> chunk exits -> chain entries -> walk
+-> compaction -> expand_members -> CRC f-values.  The foreign-stream
+bridge (``_foreign_to_device``) is not ported yet.
 
 The host helpers — member index, LS sync index, chunk spans, member
 header — are the port's own copies of the reference's (``:38-74``,
@@ -26,6 +30,9 @@ import numpy as np
 import torch
 
 from ..ops.checksum import crc32_f_rows, crc32_from_padded_f
+from ..ops.decode import chunk_exit_maps, speculative_decode_positions, \
+    walk_emit
+from ..ops.deflate_decode import chain_entries, tokens_from_emit_packed
 from ..ops.deflate_encode import splice_blocks_host
 from ..ops.device_expand import expand_members
 from ..ops.huffman import decode_table
@@ -277,7 +284,7 @@ def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
 
 def decompress_to_device(data: bytes, verify: bool = False,
                          device="cuda"):
-    """Decode a sync-indexed PGZF stream into memory on ``device``.
+    """Decode a shared-table PGZF stream into memory on ``device``.
 
     Returns ``(out, lengths)``: ``out`` is a (n_members, member_cap)
     uint8 tensor, row i holding member i's plaintext in
@@ -285,18 +292,30 @@ def decompress_to_device(data: bytes, verify: bool = False,
     int32.  Both live on ``device``.  ``verify=True`` checks every
     member's CRC-32, computed from the decoded rows, against its trailer.
 
-    Raises ImportError for a stream this path does not take (no LS sync
-    index, not shared-table), DeflateError for a malformed block header
-    or a corrupt back-reference, GzipError for a CRC mismatch, and
-    RuntimeError for ``device="cuda"`` without CUDA.
+    A stream whose every member carries the LS sync index takes the sync
+    path.  Otherwise an LF-indexed stream of single dynamic blocks whose
+    groups of 128 members share one code table (litlen codes of at most
+    12 bits, distance codes of at most 8) takes the speculative path.
+
+    Raises ImportError for a stream neither path takes (the foreign-stream
+    path is not ported), DeflateError for a malformed block header, a
+    member the speculative decode cannot follow, or a corrupt
+    back-reference, GzipError for a CRC mismatch, and RuntimeError for
+    ``device="cuda"`` without CUDA.
     """
     dev = _device(device)
     data = bytes(data)
     try:
         groups = _prepare_sync_device(data, dev)
     except ImportError as e:
-        raise ImportError(f"{e}; the speculative and foreign-stream device "
-                          "paths are not ported yet") from e
+        refs = index_members(data)
+        if refs:
+            try:
+                return _spec_to_device(data, refs, verify, dev)
+            except ImportError as spec_e:
+                e = spec_e
+        raise ImportError(f"{e}; the foreign-stream device path is not "
+                          "ported yet") from e
     plains, lens = [], []
     for prep in groups:
         plain, n_out, err, crc_f = _run_sync_chain(prep)
@@ -420,3 +439,102 @@ def _sync_to_plain(toks, bsz: int, max_nc: int, k_tok: int, n_tokens,
     packed = toks.view(bsz, max_nc * k_tok)
     plain, n_out, err = expand_members(packed, n_tokens, member_cap)
     return plain, n_out, err, crc32_f_rows(plain)
+
+
+def _spec_to_device(data: bytes, refs: list[MemberRef], verify: bool,
+                    device):
+    """decompress_to_device for shared-table streams without the LS
+    index: speculative decode to tokens (:func:`_spec_token_groups`),
+    then the sync path's expansion and CRC f-values."""
+    isizes = np.zeros((len(refs),), np.int64)
+    crcs_expected = np.zeros((len(refs),), np.uint32)
+    for i, ref in enumerate(refs):
+        crcs_expected[i], isizes[i] = struct.unpack_from(
+            "<II", data, ref.end - 8)
+    plains, lens = [], []
+    for packed, nt, group, cap in _spec_token_groups(data, refs, device):
+        plain, _n_out, err = expand_members(packed, nt, cap)
+        if bool(err.any()):
+            raise DeflateError("bad back-reference in device expansion")
+        if verify:
+            crcs = crc32_from_padded_f(crc32_f_rows(plain).cpu().numpy(),
+                                       isizes[group], cap)
+            for k, i in enumerate(group):
+                if int(crcs[k]) != int(crcs_expected[i]):
+                    raise fgzip.GzipError(f"gzip CRC mismatch in member {i}")
+        plains.append(plain)
+        lens.append(isizes[group])
+    lengths = torch.from_numpy(np.concatenate(lens).astype(np.int32)).to(
+        device)
+    return (plains[0] if len(plains) == 1 else torch.cat(plains)), lengths
+
+
+def _spec_groups(data: bytes, refs: list[MemberRef], device):
+    """Host-side staging of the speculative decode, one group of 128
+    members at a time.
+
+    Every member must be one final dynamic block with litlen codes of at
+    most 12 bits and distance codes of at most 8, and the members of a
+    group ``[g0, g0 + 128)`` must share their code lengths; else
+    ImportError (raised for a group only when it is reached, as the
+    reference does).  Each member's body goes to its own row of words,
+    zero-padded to ``w`` words, ``w`` set by the stream's largest body;
+    its 512-bit chunk grid starts at body bit 0.  Yields dicts with the
+    group's ``words`` (B, w) int32, ``lit_t`` / ``dist_t``, ``starts``
+    (B,) int32 (the first symbol's bit), member indices ``group`` and
+    ``out_cap``.
+    """
+    bodies = [data[r.body:r.end - 8] for r in refs]
+    isizes = np.array([struct.unpack_from("<I", data, r.end - 4)[0]
+                       for r in refs], np.int64)
+    out_cap = 1 << max(10, (int(isizes.max(initial=1)) - 1).bit_length())
+    lit_ls, dist_ls, starts64, flags = parse_block_headers(bodies)
+    if not (flags == (1 | (C.BTYPE_DYNAMIC << 1))).all():
+        raise ImportError("non-uniform member layout")
+    if int(lit_ls.max()) > 12 or int(dist_ls.max()) > 8:
+        raise ImportError("code lengths exceed the 12/8-bit roots")
+    # the reference's W = 4 (mod 64), P = 32W - 128 (a multiple of 2048)
+    w = max(len(b) for b in bodies) // 4 + 8
+    w = ((w - 4 + 63) // 64) * 64 + 4
+    for g0 in range(0, len(refs), DEV_BATCH):
+        group = list(range(g0, min(g0 + DEV_BATCH, len(refs))))
+        if not ((lit_ls[group] == lit_ls[g0]).all()
+                and (dist_ls[group] == dist_ls[g0]).all()):
+            raise ImportError("tables differ within a group")
+        words = np.zeros((len(group), 4 * w), np.uint8)
+        for k, i in enumerate(group):
+            words[k, :len(bodies[i])] = np.frombuffer(bodies[i], np.uint8)
+        yield {
+            "words": torch.from_numpy(words.view("<i4")).to(device),
+            "lit_t": decode_table(lit_ls[g0], 12, device),
+            "dist_t": decode_table(dist_ls[g0], 8, device),
+            "starts": torch.from_numpy(starts64[group].astype(np.int32)).to(
+                device),
+            "group": group, "out_cap": out_cap,
+        }
+
+
+def _spec_chain(words, lit_t, dist_t, starts, out_cap: int):
+    """The speculative kernels after staging: position decode -> chunk
+    exits -> chain entries -> walk -> compaction.  Returns (packed (B,
+    out_cap + 2), n_tokens (B,), err (B,)) on the group's device."""
+    tok, nxt = speculative_decode_positions(words, lit_t, dist_t)
+    entries = chain_entries(chunk_exit_maps(nxt), starts)
+    return tokens_from_emit_packed(walk_emit(nxt, tok, entries), out_cap + 2)
+
+
+def _spec_token_groups(data: bytes, refs: list[MemberRef], device):
+    """Speculative shared-table decode to device tokens, per group of 128
+    members.  Yields (packed (B, out_cap + 2) int32, n_tokens (B,),
+    member indices, out_cap).  Raises ImportError when the stream does
+    not fit the kernels and DeflateError naming the first member of a
+    group whose decode failed."""
+    for st in _spec_groups(data, refs, device):
+        packed, nt, err = _spec_chain(st["words"], st["lit_t"],
+                                      st["dist_t"], st["starts"],
+                                      st["out_cap"])
+        bad = np.flatnonzero(err.cpu().numpy())
+        if len(bad):
+            raise DeflateError(f"speculative decode failed in member "
+                               f"{st['group'][int(bad[0])]}")
+        yield packed, nt, st["group"], st["out_cap"]

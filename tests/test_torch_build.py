@@ -44,10 +44,19 @@ def test_sources_are_the_seven_kernel_files():
 
 
 def test_sources_are_the_ten_kernel_files():
+    """The ten sources of the decode, the encode and its options (the
+    speculative decode's is pinned by the next test)."""
+    names = {s.name for s in _build.sources()}
+    assert {"fields.cu", "gather.cu", "hash.cu", "lcp.cu", "match.cu",
+            "pack.cu", "parse.cu", "rank.cu", "resolve.cu",
+            "sync_decode.cu"} <= names
+
+
+def test_sources_are_the_eleven_kernel_files():
     names = sorted(s.name for s in _build.sources())
     assert names == ["fields.cu", "gather.cu", "hash.cu", "lcp.cu",
                      "match.cu", "pack.cu", "parse.cu", "rank.cu",
-                     "resolve.cu", "sync_decode.cu"]
+                     "resolve.cu", "spec_decode.cu", "sync_decode.cu"]
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

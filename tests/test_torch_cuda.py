@@ -15,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import strip_sync_index
 from libflate_tpu_torch.formats import pgzf
-from libflate_tpu_torch.ops import (deflate_encode, device_expand, expand,
-                                    fields, gather, hist, lcp, pack, parse,
-                                    pipeline, rank)
+from libflate_tpu_torch.ops import (decode, deflate_decode, deflate_encode,
+                                    device_expand, expand, fields, gather,
+                                    hist, lcp, pack, parse, pipeline, rank)
 from libflate_tpu_torch.ops import hash_match as hm
 from libflate_tpu_torch.ops import sort_match as sm
 from libflate_tpu_torch.ops import sync_decode as sd
@@ -369,3 +370,119 @@ def test_compress_options_on_cuda_match_reference_streams(
     assert pgzf.compress(gzip.decompress(ref), member_size=member,
                          options=opts, device="cuda") == ref
     assert all(k.launches > b for k, b in zip(kernels, before))
+
+
+# ---- speculative decode and gather_two -------------------------------------
+
+SPEC_KERNELS = (decode.speculative_decode_positions, decode.chunk_exit_maps,
+                deflate_decode.chain_entries, decode.walk_emit)
+
+
+@pytest.fixture(scope="module")
+def spec_group(dev):
+    """The 32 members of the 2 MiB fixture with the LS index stripped,
+    staged as the speculative path stages them (P = 178176)."""
+    data = strip_sync_index((DATA / "pgzf_sync_zipf_2m.pgz").read_bytes())
+    (st,) = list(pgzf._spec_groups(data, pgzf.index_members(data), dev))
+    return st
+
+
+def _spec_stages(st, lit_t=None):
+    lit = st["lit_t"] if lit_t is None else lit_t
+    tok, nxt = decode.speculative_decode_positions(st["words"], lit,
+                                                   st["dist_t"])
+    for got, want in zip((tok, nxt), decode.speculative_decode_positions_plain(
+            st["words"], lit, st["dist_t"])):
+        _eq(got, want)
+    ex = decode.chunk_exit_maps(nxt)
+    _eq(ex, decode.chunk_exit_maps_plain(nxt))
+    ent = deflate_decode.chain_entries(ex, st["starts"])
+    _eq(ent, deflate_decode.chain_entries_plain(ex, st["starts"]))
+    emit = decode.walk_emit(nxt, tok, ent)
+    _eq(emit, decode.walk_emit_plain(nxt, tok, ent))
+    return tok, emit
+
+
+def test_spec_kernels_match_plain(spec_group):
+    tok, emit = _spec_stages(spec_group)
+    assert tok.is_cuda and int((emit >= 0).sum()) > 100000
+
+
+def test_spec_kernels_with_bad_codes_match_plain(spec_group):
+    """A litlen table with holes: bad codes, terminals mid-chunk."""
+    lit = spec_group["lit_t"].clone()
+    lit[(lit >> 4) == ord("e")] = 0
+    tok, _emit = _spec_stages(spec_group, lit)
+    assert bool(((tok & decode.BAD_FLAG) != 0).any())
+
+
+def test_spec_chunk_exits_and_walk_on_random_orbits(dev):
+    """Jumps of 1-48, fixed points, jumps onto chunk edges, random
+    entries (overflowing chunks included)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    bsz, p_total = 5, 4096
+    pos = torch.arange(p_total, device=dev)[None, :].expand(bsz, p_total)
+    nxt = pos + torch.randint(1, 49, (bsz, p_total), generator=g, device=dev)
+    nxt = torch.where(torch.rand((bsz, p_total), generator=g, device=dev)
+                      < 0.02, pos, nxt)
+    edge = (pos // 512 + 1) * 512
+    near = (edge - pos <= 48) & (torch.rand((bsz, p_total), generator=g,
+                                            device=dev) < 0.3)
+    nxt = torch.where(near, edge, nxt).int()
+    nxt[0] = torch.clamp(pos[0] + 2, max=p_total).int()      # overflow
+    tok = torch.randint(0, 1 << 27, (bsz, p_total), generator=g, device=dev,
+                        dtype=torch.int32)
+    ex = decode.chunk_exit_maps(nxt)
+    _eq(ex, decode.chunk_exit_maps_plain(nxt))
+    ent = torch.randint(-5, p_total + 5, (bsz, p_total // 512), generator=g,
+                        device=dev, dtype=torch.int32)
+    _eq(decode.walk_emit(nxt, tok, ent), decode.walk_emit_plain(nxt, tok,
+                                                                ent))
+    starts = torch.randint(0, 600, (bsz,), generator=g, device=dev,
+                           dtype=torch.int32)
+    _eq(deflate_decode.chain_entries(ex, starts),
+        deflate_decode.chain_entries_plain(ex, starts))
+
+
+@pytest.mark.parametrize("name", ["pgzf_sync_zipf_small.pgz",
+                                  "pgzf_sync_zipf_2m.pgz"])
+def test_spec_decompress_to_device_on_cuda(dev, name, monkeypatch):
+    synced = (DATA / name).read_bytes()
+    data = strip_sync_index(synced)
+    for mod, fn in ((decode, "speculative_decode_positions_plain"),
+                    (decode, "chunk_exit_maps_plain"),
+                    (decode, "walk_emit_plain"),
+                    (deflate_decode, "chain_entries_plain")):
+        monkeypatch.setattr(mod, fn, lambda *a, **k: (_ for _ in ()).throw(
+            AssertionError("a CUDA tensor reached a plain version")))
+    before = [k.launches for k in SPEC_KERNELS + (sd.sync_decode,)]
+    out, lengths = pgzf.decompress_to_device(data, verify=True,
+                                             device="cuda")
+    after = [k.launches for k in SPEC_KERNELS + (sd.sync_decode,)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 0]
+    sync_out, sync_len = pgzf.decompress_to_device(synced, device="cuda")
+    _eq(out, sync_out)
+    _eq(lengths, sync_len)
+    live = (torch.arange(out.shape[1], device=dev)[None, :]
+            < lengths[:, None])
+    assert bytes(out[live].cpu().numpy()) == gzip.decompress(synced)
+
+
+@pytest.mark.parametrize("rows,n", [(64, 64), (512, 512)])
+def test_gather_two_kernel_matches_plain(dev, rows, n):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    bsz, win = 16, 16
+    tabs = [torch.randint(-2**31, 2**31 - 1, (bsz, rows, 128), generator=g,
+                          device=dev, dtype=torch.int64).int()
+            for _ in range(2)]
+    lo = (torch.randint(0, (rows - win) // 8 + 1, (bsz, n // 8),
+                        generator=g, device=dev) * 8).int()
+    idx = ((lo.repeat_interleave(8, dim=1)[:, :, None]
+            + torch.randint(-3, win + 3, (bsz, n, 128), generator=g,
+                            device=dev)) * 128
+           + torch.randint(0, 128, (bsz, n, 128), generator=g,
+                           device=dev)).int()
+    idx[0, 0, :3] = torch.tensor([-1, rows * 128, 2**31 - 1], device=dev)
+    got = gather.gather_two(*tabs, idx, lo, win=win)
+    for x, y in zip(got, gather.gather_two_plain(*tabs, idx, lo, win=win)):
+        _eq(x, y)

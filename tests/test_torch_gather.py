@@ -70,3 +70,52 @@ def test_gather_rows_rejects_bad_tables():
     with pytest.raises(ValueError, match="gather_rows"):
         gather.gather_rows(torch.zeros((2, 8), dtype=torch.int32),
                            torch.zeros((3, 4), dtype=torch.int32))
+
+
+@pytest.fixture(scope="module")
+def two_tables():
+    """gather_two's inputs at B = 2, R = N = 64, win 16: each 8-row group
+    of indices has a window start (multiples of 8 from 0 to R - win) and
+    indices inside it, on its edges and outside it, negative and past the
+    table included, and the reference's outputs in interpret mode."""
+    rng = np.random.default_rng(15)
+    bsz, rows, n, win = 2, 64, 64, 16
+    tab_a = rng.integers(-2**31, 2**31 - 1, (bsz, rows, 128), np.int64)
+    tab_b = rng.integers(0, 1000, (bsz, rows, 128), np.int64)
+    lo = rng.integers(0, (rows - win) // 8 + 1, (bsz, n // 8)) * 8
+    lo[:, 0], lo[:, 1] = 0, rows - win
+    row = np.repeat(lo, 8, axis=1)[:, :, None] + rng.integers(
+        -3, win + 3, (bsz, n, 128))
+    idx = row * 128 + rng.integers(0, 128, (bsz, n, 128))
+    idx[:, :, 5] = lo.repeat(8, axis=1) * 128 - 1             # below
+    idx[:, :, 6] = (lo.repeat(8, axis=1) + win) * 128         # just past
+    idx[:, :, 7] = (lo.repeat(8, axis=1) + win) * 128 - 1     # last inside
+    idx[0, 3, :4] = [-1, -129, rows * 128, 2**31 - 1]
+    args = [a.astype(np.int32) for a in (tab_a, tab_b, idx, lo)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LIBFLATE_PALLAS_INTERPRET", "1")
+        from libflate_tpu.ops.pallas_gather import gather_two
+        want = gather_two(*(jnp.asarray(a) for a in args), win=win)
+    return args, [np.asarray(w) for w in want], win
+
+
+def test_gather_two_plain_matches_reference(two_tables):
+    args, want, win = two_tables
+    got = gather.gather_two(*(torch.from_numpy(a) for a in args), win=win)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    hit = want[1] != 0
+    assert 0.5 < hit.mean() < 0.95 and (~hit[:, :, 5:7]).all()
+
+
+def test_gather_two_rejects_bad_arguments():
+    t = torch.zeros((2, 64, 128), dtype=torch.int32)
+    i = torch.zeros((2, 64, 128), dtype=torch.int32)
+    lo = torch.zeros((2, 8), dtype=torch.int32)
+    for call in (lambda: gather.gather_two(t, t, i, lo, win=12),
+                 lambda: gather.gather_two(t, t, i, lo, win=72),
+                 lambda: gather.gather_two(t, t[:, :56], i, lo),
+                 lambda: gather.gather_two(t, t, i, lo[:, :7])):
+        with pytest.raises(ValueError, match="gather_two"):
+            call()

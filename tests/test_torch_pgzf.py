@@ -156,8 +156,12 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 from libflate_tpu_torch.formats import pgzf
-out, lengths = pgzf.decompress_to_device(open(sys.argv[1], "rb").read(),
-                                         verify=True, device="cpu")
+stream = open(sys.argv[1], "rb").read()
+out, lengths = pgzf.decompress_to_device(stream, verify=True, device="cpu")
+import torch
+spec_out, spec_len = pgzf.decompress_to_device(
+    chip_smoke.strip_sync_index(stream), verify=True, device="cpu")
+assert torch.equal(spec_out, out) and torch.equal(spec_len, lengths)
 data = bytes(range(256)) * 8 + b"abc" * 2000
 import gzip
 assert gzip.decompress(pgzf.compress(data, 1024, device="cpu")) == data
@@ -176,13 +180,14 @@ print(len(mods), int(lengths.sum()))
 
 
 def test_imports_and_runs_with_jax_blocked(small):
-    """Every port module and chip_smoke.py import, decode and encode (by
-    default, in chain-8 quality mode and with the hash matcher) with both
-    JAX and the reference package blocked."""
+    """Every port module and chip_smoke.py import, decode (through the
+    sync path and, with the LS index stripped, the speculative path) and
+    encode (by default, in chain-8 quality mode and with the hash matcher)
+    with both JAX and the reference package blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n_mods, n_bytes = map(int, res.stdout.split())
-    assert n_mods >= 24
+    assert n_mods >= 26
     assert n_bytes == len(gzip.decompress(small))
