@@ -8,7 +8,8 @@ Phases, each of which raises on failure (exit code != 0):
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
    no CUDA means exit 1 before anything runs;
 2. build the eleven CUDA sources from ``libflate_tpu_torch/csrc`` with
-   one nvcc per source, all at once, for sm_90a;
+   one nvcc per source, all at once, for sm_90a; print the sort matcher's
+   registers, shared memory and resident clusters / blocks at n = 65536;
 3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
    a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
    gzip is the oracle; the host staging time is printed;
@@ -32,7 +33,8 @@ Phases, each of which raises on failure (exit code != 0):
    matcher's exact prefix, 8 rounds) and as the hash profile does (hash
    candidates, 6 rounds), one chain level's gather, the hash table;
 7. the encode main path ``compress(device="cuda")`` of the 64 MiB,
-   counted: every encode kernel launched, the stream read back by stdlib
+   counted: every encode kernel launched (the sort and the scan once per
+   batch, here and in the quality mode), the stream read back by stdlib
    gzip and by the port's ``decompress_to_device``; then, counted the
    same way, (7b) the quality mode ``options=EncodeOptions(
    matcher="chain", max_chain=8, lcp_rounds=8)`` with ``match_lengths``
@@ -161,6 +163,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def check_one_sort_per_batch(counts: dict, n_batches: int, what: str):
+    """The sort matcher launches its sort and its scan once per batch."""
+    for k in ("sort_match.sort_keys", "sort_match.scan_emit"):
+        if counts[k] != n_batches:
+            raise AssertionError(f"{what}: {k} launched {counts[k]} times "
+                                 f"for {n_batches} batches")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -193,6 +203,8 @@ def main() -> None:
     _build.load()
     log(f"built {so.name} from {len(_build.sources())} sources in "
         f"{time.perf_counter() - t:.2f} s")
+    log(f"match.cu at n=65536: {json.dumps(sm.kernel_info(65536))} "
+        f"[{card_line}]")
 
     # 3. decode input and oracle
     stream = FIXTURE.read_bytes() * COPIES
@@ -482,6 +494,8 @@ def main() -> None:
     if min(enc_launches.values()) < 1:
         raise AssertionError(f"a kernel of the path did not run: "
                              f"{enc_launches}")
+    n_batches = -(-len(data) // (n_b * ms_enc))
+    check_one_sort_per_batch(enc_launches, n_batches, "encode main path")
     if gzip.decompress(enc_stream) != data:
         raise AssertionError("stdlib gzip does not read back the encode")
     back, back_len = pgzf.decompress_to_device(enc_stream, verify=True,
@@ -511,7 +525,8 @@ def main() -> None:
             raise AssertionError(f"the port's decode does not read back "
                                  f"{what}")
 
-    def run_counted(kernels, what: str, **kw) -> bytes:
+    def run_counted(kernels, what: str, per_batch: bool = False,
+                    **kw) -> bytes:
         for k in all_kernels:
             k.launches = 0
         with device_matcher(kw.pop("matcher", "sort")):
@@ -523,6 +538,8 @@ def main() -> None:
         if min(counts.values()) < 1:
             raise AssertionError(f"a kernel of the path did not run: "
                                  f"{counts}")
+        if per_batch:
+            check_one_sort_per_batch(counts, n_batches, what)
         read_back(stream, what)
         log(f"{what}: {len(data)} bytes -> {len(stream)} bytes (ratio "
             f"{len(stream) / len(data):.6f}, default {ratio:.6f}), read "
@@ -533,7 +550,7 @@ def main() -> None:
     q_stream = run_counted(enc_kernels + (lcp.match_lengths,
                                           gather.gather_rows),
                            "quality mode (chain 8, lcp_rounds 8)",
-                           options=quality)
+                           per_batch=True, options=quality)
     for k in (lcp.match_lengths, gather.gather_rows):
         launches[kname(k)] = k.launches
     # 7c. the hash profile at full depth (8 batches), counted
@@ -703,6 +720,13 @@ def main() -> None:
             f"bound {bound:.4f} ms ({moved} bytes), library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
             f"[{card_line}]")
+    row = {r["name"]: r for r in summary}
+    srt, scn = row[kname(sm.sort_keys)], row[kname(sm.scan_emit)]
+    log(f"sort matcher: sort_keys {srt['ms']:.4f} ms against torch.sort("
+        f"stable=True) {srt['library_ms']:.4f} ms (ratio "
+        f"{srt['ms'] / srt['library_ms']:.3f}), bound {srt['bound_ms']:.4f}; "
+        f"scan_emit {scn['ms']:.4f} ms, bound {scn['bound_ms']:.4f} "
+        f"[{card_line}]")
     log(f"decode device chain (sync decode -> expand -> CRC f-values): "
         f"{chain_ms:.4f} ms median of 11, {n_dec / chain_ms / 1e6:.3f} "
         f"GB/s of plaintext, peak {peak / 2**20:.0f} MiB [{card_line}]")

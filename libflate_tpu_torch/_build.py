@@ -30,8 +30,9 @@ _SIGNATURES = {
     "lf_sync_decode": "pqpppppipiip",
     "lf_rank_emit_src": "pppppiiip",
     "lf_resolve_bytes": "pppiip",
-    "lf_sort_keys": "ppppppiip",
-    "lf_scan_emit": "pppppiiiiip",
+    "lf_sort_keys": "pppiiiip",
+    "lf_scan_emit": "pppppiiiiiiip",
+    "lf_match_info": "iiip",
     "lf_chunk_exits": "ppiip",
     "lf_walk_emit": "pppppiiip",
     "lf_token_hist": "pppqpp",

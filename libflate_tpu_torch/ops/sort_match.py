@@ -7,11 +7,15 @@ Every position's big-endian 4-byte prefix is sorted (ties by position);
 a position's candidates are its 8 sorted predecessors, scored by their
 exact shared prefix up to 16 bytes (the key and the words at p+4, p+8,
 p+12) and by nearness.  Two kernels in ``csrc/match.cu``:
-:func:`sort_keys` (stable per-member radix sort) and :func:`scan_emit`
-(the back-scan, writing ``(cand, m)`` straight to text order, which is
-the reference's unsort).
+:func:`sort_keys` (stable per-member radix sort, one thread-block cluster
+per member) and :func:`scan_emit` (the back-scan over the member's bytes
+in shared memory, writing ``(cand, m)`` to text order, which is the
+reference's unsort).  :func:`sort_geometry` and :func:`scan_geometry`
+give their launch shapes.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -21,6 +25,48 @@ SCAN_K = 8                 # sorted predecessors examined per position
 M_EXACT = 16               # exact shared-length bound (key + 3 words)
 WINDOW = 32768
 _PAD_KEY = 2 ** 31 - 1     # padding positions sort last
+SORT_TILE = 8192           # keys per CTA of a member's cluster
+MAX_N = 65536              # 8 CTAs; positions are uint16 in shared memory
+SCAN_TILE = 4096           # sorted slots per scan block
+
+
+def sort_geometry(n: int) -> tuple[int, int]:
+    """Launch shape of the sort kernel for (B, n) keys: (CTAs in each
+    member's cluster, dynamic shared bytes per CTA: int32 keys and uint16
+    positions of up to 8192 entries, twice)."""
+    if n < 1024 or n % 1024 or n > MAX_N:
+        raise ValueError(f"sort_keys: N must be a multiple of 1024 from "
+                         f"1024 to {MAX_N}, got {n}")
+    return -(-n // SORT_TILE), 12 * min(n, SORT_TILE)
+
+
+def scan_geometry(n_pad: int, n: int) -> tuple[int, int]:
+    """Launch shape of the scan kernel for (B, n_pad) sorted slots over
+    (B, n) bytes: (slots per block, dynamic shared bytes per block: the
+    member's bytes with 16 or more zero bytes after them, rounded to 16,
+    then the keys and positions of the tile and the 8 slots before it)."""
+    if n > n_pad or n > MAX_N:
+        raise ValueError(f"scan_emit: needs n <= n_pad and n <= {MAX_N}, "
+                         f"got n={n}, n_pad={n_pad}")
+    tile = min(SCAN_TILE, n_pad)
+    return tile, (n + 31) // 16 * 16 + 8 * (tile + SCAN_K)
+
+
+def kernel_info(n: int = MAX_N) -> dict:
+    """The two kernels as compiled and at the main path's shape (B, n):
+    registers, static shared and spill bytes, dynamic shared bytes, the
+    sort's resident clusters and the scan's resident blocks per SM."""
+    ctas, sort_smem = sort_geometry(n)
+    scan_smem = scan_geometry(n, n)[1]
+    out = (ctypes.c_int * 10)()
+    err = _build.load().lf_match_info(ctas, sort_smem, scan_smem, out)
+    if err != 0:
+        raise RuntimeError(f"lf_match_info failed with error {err}")
+    keys = ("regs", "static_smem", "spill_bytes", "dynamic_smem")
+    return {"sort_keys": {**dict(zip(keys, out[0:4])), "ctas": ctas,
+                          "active_clusters": out[4]},
+            "scan_emit": {**dict(zip(keys, out[5:9])),
+                          "blocks_per_sm": out[9]}}
 
 
 def _words(blocks: torch.Tensor, n_words: int) -> torch.Tensor:
@@ -54,8 +100,9 @@ def sort_keys(key: torch.Tensor):
     """Stable per-row sort of (B, N) int32 keys in signed order.
 
     Returns (sorted keys, their positions), both (B, N) int32; equal keys
-    keep position order.  N must be a multiple of 1024 on CUDA.  CPU
-    tensors run :func:`sort_keys_plain`; CUDA tensors run the kernel.
+    keep position order.  On CUDA, N must be a multiple of 1024 from 1024
+    to 65536 (:func:`sort_geometry`).  CPU tensors run
+    :func:`sort_keys_plain`; CUDA tensors run the kernel, one launch.
     """
     if key.dim() != 2 or key.dtype != torch.int32:
         raise ValueError("sort_keys: expects (B, N) int32")
@@ -64,18 +111,13 @@ def sort_keys(key: torch.Tensor):
     if key.device.type != "cuda":
         raise ValueError(f"sort_keys: unsupported device {key.device}")
     bsz, n = key.shape
-    if n % 1024:
-        raise ValueError("sort_keys: N must be a multiple of 1024")
+    ctas, smem = sort_geometry(n)
     key = key.contiguous()
-    ka, pa = torch.empty_like(key), torch.empty_like(key)
-    kb, pb = torch.empty_like(key), torch.empty_like(key)
-    hist = torch.empty((bsz * (n // 1024) * 16,), dtype=torch.int32,
-                       device=key.device)
-    _build.launch("lf_sort_keys", key.data_ptr(), ka.data_ptr(),
-                  pa.data_ptr(), kb.data_ptr(), pb.data_ptr(),
-                  hist.data_ptr(), bsz, n)
+    sk, sp = torch.empty_like(key), torch.empty_like(key)
+    _build.launch("lf_sort_keys", key.data_ptr(), sk.data_ptr(),
+                  sp.data_ptr(), bsz, n, ctas, smem)
     sort_keys.launches += 1
-    return kb, pb
+    return sk, sp
 
 
 sort_keys.launches = 0
@@ -144,7 +186,8 @@ def scan_emit(skey: torch.Tensor, spos: torch.Tensor, blocks: torch.Tensor,
     within ``window`` by (exact shared prefix up to ``m_exact`` bytes,
     then nearness), or -1 when none shares >= 3 bytes, and that shared
     length (0 with no candidate).  CPU tensors run
-    :func:`scan_emit_plain`; CUDA tensors run the kernel.
+    :func:`scan_emit_plain`; CUDA tensors run the kernel (n <= 65536,
+    :func:`scan_geometry`).
     """
     bsz, n_pad = skey.shape
     n = blocks.shape[1]
@@ -155,13 +198,14 @@ def scan_emit(skey: torch.Tensor, spos: torch.Tensor, blocks: torch.Tensor,
         return scan_emit_plain(skey, spos, blocks, window, m_exact)
     if skey.device.type != "cuda":
         raise ValueError(f"scan_emit: unsupported device {skey.device}")
+    tile, smem = scan_geometry(n_pad, n)
     sk, sp = (t.to(torch.int32).contiguous() for t in (skey, spos))
     blk = blocks.contiguous()
     cand = torch.empty((bsz, n), dtype=torch.int32, device=sk.device)
     m = torch.empty_like(cand)
     _build.launch("lf_scan_emit", sk.data_ptr(), sp.data_ptr(),
                   blk.data_ptr(), cand.data_ptr(), m.data_ptr(), bsz, n_pad,
-                  n, window, m_exact)
+                  n, window, m_exact, tile, smem)
     scan_emit.launches += 1
     return cand, m
 

@@ -188,17 +188,85 @@ def enc_batch(dev):
     return (torch.from_numpy(rows).to(dev), torch.from_numpy(nv).to(dev))
 
 
-@pytest.mark.parametrize("n", [1024, 3072, 65536])
-def test_sort_keys_kernel_matches_plain(dev, n):
+def _skewed_text(dev, g, bsz: int, n: int) -> torch.Tensor:
+    """(bsz, n) uint8 of a 13-letter alphabet, Zipf-like: keys whose
+    bytes take few values, so a radix digit takes few values too."""
+    alphabet = torch.tensor(list(b" etaoinshrdlu"), dtype=torch.uint8,
+                            device=dev)
+    weights = 1.0 / torch.arange(1, 14, device=dev) ** 1.2
+    idx = torch.multinomial(weights, bsz * n, replacement=True, generator=g)
+    return alphabet[idx].view(bsz, n)
+
+
+def _sort_case(dev, n: int, pattern: str) -> torch.Tensor:
+    bsz = 128 if n == 65536 else 4
     g = torch.Generator(device=dev).manual_seed(n)
-    key = torch.randint(-2 ** 31, 2 ** 31 - 1, (4, n), generator=g,
+    rnd = torch.randint(-2 ** 31, 2 ** 31 - 1, (bsz, n), generator=g,
                         device=dev, dtype=torch.int64).to(torch.int32)
-    key[1] = key[1] % 5                     # many ties: stability
-    key = sm.prefix_keys(key.to(torch.uint8)) if n == 3072 else key
+    if pattern == "random":
+        return rnd
+    if pattern == "few":                    # many ties: stability
+        return rnd % 5
+    if pattern == "equal":
+        return torch.full_like(rnd, -7)
+    if pattern == "descending":
+        down = torch.arange(n - 1, -1, -1, device=dev) * 65537 - 2 ** 31
+        return down.to(torch.int32).expand(bsz, n).contiguous()
+    text = _skewed_text(dev, g, bsz, n)
+    if pattern == "text":
+        return sm.prefix_keys(text)[:, :n].contiguous()
+    assert pattern == "padding"             # a padding tail after text
+    text[:, 5::97] = 0xFF                   # keys equal to the padding key
+    text[:, 3::101] = 0xFF
+    text[:, 4::101] = 0xFF
+    text[:, 6::101] = 0xFF
+    keys = sm.prefix_keys(text[:, :n // 4 + 5])
+    return torch.nn.functional.pad(keys[:, :n // 4 + 5],
+                                   (0, n - n // 4 - 5), value=2 ** 31 - 1)
+
+
+@pytest.mark.parametrize("pattern", ["random", "few", "equal", "descending",
+                                     "text", "padding"])
+@pytest.mark.parametrize("n", [1024, 2048, 3072, 8192, 16384, 65536])
+def test_sort_keys_kernel_matches_plain(dev, n, pattern):
+    """Every cluster size the main path and the tests give (1, 2 and 8
+    CTAs), B = 128 at the main path's n = 65536."""
+    key = _sort_case(dev, n, pattern)
+    before = sm.sort_keys.launches
     got = sm.sort_keys(key)
+    assert sm.sort_keys.launches == before + 1
     want = sm.sort_keys_plain(key)
     _eq(got[0], want[0])
     _eq(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [1024, 3000, 65536])
+def test_scan_emit_kernel_matches_plain_across_tiles(dev, n):
+    """Rows whose equal-key runs are longer than a scan tile (4096 slots),
+    so a tile's first slots score predecessors from the 8-slot halo; at
+    n = 1024 one tile; n = 3000 stages the bytes one by one and pads the
+    keys to 4096 slots."""
+    plain = gzip.decompress((DATA / "pgzf_sync_zipf_2m.pgz").read_bytes())
+    g = torch.Generator(device=dev).manual_seed(n)
+    rows = torch.frombuffer(bytearray(plain[:8 * n]),
+                            dtype=torch.uint8).view(8, n).to(dev)
+    rows[0] = torch.tensor(list(b"ab"), dtype=torch.uint8,
+                           device=dev).repeat(n // 2 + 1)[:n]
+    rows[1] = torch.tensor(list(b"abcab"), dtype=torch.uint8,
+                           device=dev).repeat(n // 5 + 1)[:n]
+    rows[2] = 0
+    rows[3] = 0xFF                          # keys equal to the padding key
+    rows[4] = _skewed_text(dev, g, 1, n)[0]
+    rows[5] = torch.randint(0, 256, (n,), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    keys = sm.prefix_keys(rows)
+    sk, sp = sm.sort_keys(keys)
+    tile = sm.scan_geometry(keys.shape[1], n)[0]
+    if keys.shape[1] > tile:
+        assert bool((sk[:, tile] == sk[:, tile - 1]).any())
+    for got, want in zip(sm.scan_emit(sk, sp, rows),
+                         sm.scan_emit_plain(sk, sp, rows)):
+        _eq(got, want)
 
 
 def test_match_kernels_match_plain(enc_batch):

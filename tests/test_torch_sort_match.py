@@ -89,3 +89,46 @@ def test_lengths_stage_matches_reference(reference):
     np.testing.assert_array_equal(got_c.numpy(), w_c)
     np.testing.assert_array_equal(got_l.numpy(), w_l)
     assert w_l.max() > sm.M_EXACT           # runs pass the 16-byte cap
+
+
+@pytest.mark.parametrize("n,ctas,smem", [
+    (1024, 1, 12288), (2048, 1, 24576), (3072, 1, 36864), (8192, 1, 98304),
+    (9216, 2, 98304), (16384, 2, 98304), (65536, 8, 98304)])
+def test_sort_geometry_one_cluster_per_member(n, ctas, smem):
+    """ceil(n / 8192) CTAs of up to 8192 keys each, keys and uint16
+    positions twice in dynamic shared memory; the last CTA may hold
+    fewer (9216 = 8192 + 1024)."""
+    assert sm.sort_geometry(n) == (ctas, smem)
+    assert (ctas - 1) * sm.SORT_TILE < n <= ctas * sm.SORT_TILE
+
+
+@pytest.mark.parametrize("n", [0, 512, 1000, 66560, 131072])
+def test_sort_geometry_rejects_what_the_kernel_cannot_sort(n):
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        sm.sort_geometry(n)
+
+
+@pytest.mark.parametrize("n_pad,n,tile,smem", [
+    (65536, 65536, 4096, 65552 + 8 * 4104),
+    (1024, 1024, 1024, 1040 + 8 * 1032), (4096, 3000, 4096, 3024 + 8 * 4104)])
+def test_scan_geometry_stages_the_member_and_a_tile(n_pad, n, tile, smem):
+    """The member's bytes with at least 16 zero bytes after them, rounded
+    to 16, then the tile's keys and positions and the 8-slot halo; two
+    blocks fit in an SM's 228 KB at the main path's shape."""
+    assert sm.scan_geometry(n_pad, n) == (tile, smem)
+    assert 2 * (sm.scan_geometry(65536, 65536)[1] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("n_pad,n", [(131072, 65537), (1024, 2048)])
+def test_scan_geometry_rejects_what_the_kernel_cannot_scan(n_pad, n):
+    with pytest.raises(ValueError, match="needs n <= n_pad"):
+        sm.scan_geometry(n_pad, n)
+
+
+def test_wrappers_refuse_other_devices():
+    key = torch.zeros((2, 1024), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sm.sort_keys(key)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sm.scan_emit(key, key, torch.zeros((2, 1024), dtype=torch.uint8,
+                                           device="meta"))
