@@ -8,8 +8,10 @@ Phases, each of which raises on failure (exit code != 0):
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
    no CUDA means exit 1 before anything runs;
 2. build the eleven CUDA sources from ``libflate_tpu_torch/csrc`` with
-   one nvcc per source, all at once, for sm_90a; print the sort matcher's
-   registers, shared memory and resident clusters / blocks at n = 65536;
+   one nvcc per source, all at once, for sm_90a, and the host token
+   decoder (``libflate_tpu_torch/native``) with g++; print the sort
+   matcher's and the parse's registers, shared memory and resident
+   clusters / blocks at n = 65536;
 3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
    a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
    gzip is the oracle; the host staging time is printed;
@@ -25,6 +27,13 @@ Phases, each of which raises on failure (exit code != 0):
    5b. the speculative main path: the stripped shard through the same
    call, counted: each speculative kernel once per group of 128 members
    (8), the sync kernel never, rows equal to the sync path's and gzip's;
+   5c. the foreign-stream path, counted: the 64 MiB plaintext cut into
+   1024 members of 64 KiB, each written by stdlib ``gzip.compress``
+   (per-member dynamic tables, no index: walked by end bits), and the
+   committed ``pgzf_encode_small.pgz`` (LF-indexed, stored members 130-133:
+   one threaded batch), each equal to ``gzip.decompress`` with every CRC
+   checked; rank and resolve launched, the sync and speculative kernels
+   not;
 6. encode input: that 64 MiB plaintext, 8 batches of 128 members of
    64 KiB; each encode kernel against its plain version on the card at
    the first batch's full shapes (128 x 65536), bit-exact;
@@ -47,9 +56,10 @@ Phases, each of which raises on failure (exit code != 0):
    (``tests/data/pgzf_encode_*.pgz``, written by the JAX reference, each
    with the options and matcher it was written with);
 9. timing with CUDA events (kernels, plain versions, yardsticks, the
-   sync and speculative decode chains, the chains of the three encode
-   modes) and on the host clock (the end-to-end calls, host staging split
-   out), each with the card's name and power limit.
+   sync, speculative and foreign decode chains, the chains of the three
+   encode modes) and on the host clock (the end-to-end calls, host staging
+   and the foreign path's host token decode split out), each with the
+   card's name and power limit.
 
 Kernels are keyed by module and function (``parse.walk_emit`` and
 ``decode.walk_emit`` are two kernels).
@@ -174,7 +184,7 @@ def check_one_sort_per_batch(counts: dict, n_batches: int, what: str):
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
-    from libflate_tpu_torch import _build
+    from libflate_tpu_torch import _build, native
     from libflate_tpu_torch.formats import pgzf
     from libflate_tpu_torch.ops import (checksum, decode, deflate_decode,
                                         deflate_encode, device_expand,
@@ -203,7 +213,13 @@ def main() -> None:
     _build.load()
     log(f"built {so.name} from {len(_build.sources())} sources in "
         f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    native.load()
+    log(f"built {native.library_path().name} with g++ in "
+        f"{time.perf_counter() - t:.2f} s")
     log(f"match.cu at n=65536: {json.dumps(sm.kernel_info(65536))} "
+        f"[{card_line}]")
+    log(f"parse.cu at n=65536: {json.dumps(parse.kernel_info(65536))} "
         f"[{card_line}]")
 
     # 3. decode input and oracle
@@ -381,6 +397,47 @@ def main() -> None:
     launches.update(spec_main_path(stream, oracle, plain_dev,
                                    "speculative decode main path"))
     del plain_dev, live
+
+    # 5c. the foreign-stream path, counted: 1024 stdlib-gzip members of 64
+    # KiB without an index, and the small encode with its stored members
+    t = time.perf_counter()
+    foreign = b"".join(gzip.compress(oracle[i:i + 65536])
+                       for i in range(0, len(oracle), 65536))
+    log(f"foreign input: {len(oracle)} bytes as "
+        f"{-(-len(oracle) // 65536)} stdlib gzip members -> {len(foreign)} "
+        f"bytes, written in {time.perf_counter() - t:.2f} s")
+    foreign_streams = {
+        "1024 stdlib gzip members of 64 KiB, no index": foreign,
+        "pgzf_encode_small.pgz, stored members 130-133":
+            (DATA / "pgzf_encode_small.pgz").read_bytes()}
+    fg_kernels = (rank.rank_emit_src, expand.resolve_bytes)
+    for what, fstream in foreign_streams.items():
+        fplain = gzip.decompress(fstream)
+        for k in all_kernels:
+            k.launches = 0
+        rows, lens = pgzf.decompress_to_device(fstream, verify=True,
+                                               device="cuda")
+        torch.cuda.synchronize()
+        counts = {kname(k): k.launches for k in fg_kernels}
+        others = {kname(k): k.launches for k in all_kernels
+                  if k not in fg_kernels and k.launches}
+        log(f"foreign decode ({what}) launches: {counts}, other kernels "
+            f"{others}")
+        if min(counts.values()) < 1 or others:
+            raise AssertionError(f"foreign decode ({what}): expected rank "
+                                 f"and resolve only: {counts} {others}")
+        live_ = (torch.arange(rows.shape[1], device=dev)[None, :]
+                 < lens.to(torch.int64)[:, None])
+        if bytes(rows[live_].cpu().numpy()) != fplain:
+            raise AssertionError(f"foreign decode ({what}): plaintext "
+                                 f"differs from gzip's")
+        if bool(rows[~live_].any()):
+            raise AssertionError(f"foreign decode ({what}): nonzero bytes "
+                                 f"past a length")
+        log(f"foreign decode ({what}): {len(fstream)} stream bytes -> "
+            f"{len(fplain)} bytes in rows {tuple(rows.shape)}, equal to "
+            f"stdlib gzip, {rows.shape[0]} member CRCs verified")
+    del rows, live_
 
     # 6. encode kernels against their plain versions, first batch
     data = oracle
@@ -600,6 +657,8 @@ def main() -> None:
     entered = int(((s_ent.to(torch.int64) >> 9)
                    == torch.arange(n_chunks, device=dev)[None, :]).sum())
     emitted = int((s_rows[:, :, :decode.MAX_EMIT] >= 0).sum())
+    # the greedy walk's entry chain reads one exit per chunk after the first
+    walk_entries = jump.shape[0] * (jump.shape[1] // parse.CHUNK - 1)
     sym = torch.cat([
         torch.where(b > 0, hist.length_symbol(a.clamp(3, 258)), a)[valid],
         hist.DIST_BIN0 + hist.dist_symbol(b[valid & (b > 0)])])
@@ -635,11 +694,12 @@ def main() -> None:
          lambda: parse.chunk_exits(jump),
          lambda: parse.chunk_exits_plain(jump), None,
          nbytes(jump, ex), 10, 2),
+        # reads jump and tok whole and one exit per chunk on the entry chain
         (kname(parse.walk_emit), "libflate_tpu_torch/csrc/parse.cu",
          "libflate_tpu/ops/pallas_parse.py:143",
          lambda: parse.walk_emit(jump, tok, ex, pcap),
          lambda: parse.walk_emit_plain(jump, tok, ex, pcap), None,
-         nbytes(jump, tok, ex, slots, ovf), 10, 2),
+         nbytes(jump, tok, slots, ovf) + 4 * walk_entries, 10, 2),
         (kname(hist.token_hist), "libflate_tpu_torch/csrc/fields.cu",
          "libflate_tpu/ops/pallas_hist.py:46",
          lambda: hist.token_hist(a, b, valid),
@@ -872,6 +932,43 @@ def main() -> None:
             f"[{card_line}]")
 
     end_to_end("default", ratio)
+
+    # the foreign path: host token decode, device chain (expand + CRC
+    # f-values on the uploaded tokens), end to end
+    for what, fstream in foreign_streams.items():
+        frefs = pgzf.index_members(fstream)
+        host_s = []
+        for _ in range(3):
+            t = time.perf_counter()
+            ftok = pgzf._foreign_tokens(fstream, frefs)
+            host_s.append(time.perf_counter() - t)
+        fpacked, fnt, fsizes, _crcs, fcap = ftok
+        fpacked_d = torch.from_numpy(fpacked).to(dev)
+        fnt_d = torch.from_numpy(fnt).to(dev)
+        f_chain_ms = cuda_ms(lambda: checksum.crc32_f_rows(
+            device_expand.expand_members(fpacked_d, fnt_d, fcap)[0]), 5)
+        f_walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            pgzf.decompress_to_device(fstream, verify=True, device="cuda")
+            torch.cuda.synchronize()
+            f_walls.append(time.perf_counter() - t)
+        f_plain = sum(fsizes)
+        how = ("indexed: one threaded batch" if frefs
+               else "walked by end bits")
+        log(f"foreign decode ({what}), {len(fsizes)} members, tokens "
+            f"{tuple(fpacked.shape)}, rows of {fcap}: host token decode "
+            f"{statistics.median(host_s) * 1e3:.2f} ms median of 3 ({how}) "
+            f"[{card_line}]")
+        log(f"foreign decode ({what}): device chain (expand_members + "
+            f"crc32_f_rows) {f_chain_ms:.4f} ms median of 5, "
+            f"{f_plain / f_chain_ms / 1e6:.3f} GB/s of plaintext "
+            f"[{card_line}]")
+        log(f"foreign decode ({what}): end to end decompress_to_device("
+            f"verify=True) {statistics.median(f_walls) * 1e3:.2f} ms median "
+            f"of 3, {f_plain / statistics.median(f_walls) / 1e9:.3f} GB/s of "
+            f"plaintext [{card_line}]")
+        del fpacked_d, fnt_d
 
     # the option paths: one batch's chain, its new stages, end to end
     q_knobs = pipeline.device_knobs(quality)

@@ -35,6 +35,7 @@ _SIGNATURES = {
     "lf_match_info": "iiip",
     "lf_chunk_exits": "ppiip",
     "lf_walk_emit": "pppppiiip",
+    "lf_parse_info": "ip",
     "lf_token_hist": "pppqpp",
     "lf_token_fields": "pppqppppp",
     "lf_pack_stitch": "ppppiiip",
@@ -51,6 +52,7 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 
 _lock = threading.Lock()
 _lib = None
+_fns: dict = {}
 
 
 def sources() -> list[pathlib.Path]:
@@ -135,7 +137,9 @@ def launch(name: str, *args) -> None:
     """Call C entry point ``name`` on the current CUDA stream; the stream
     is appended as the last argument.  Raises if the launch failed."""
     import torch
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(load(), name)(*args, stream)
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(load(), name)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -14,8 +14,10 @@ CRC f-values.  Shared-table streams without the LS index take the
 speculative branch, ``_spec_to_device`` (``:935-970``) and
 ``_spec_token_groups`` (``:1186-1261``, the fused jit ``:1154-1183`` as
 ``_spec_chain``): position decode -> chunk exits -> chain entries -> walk
--> compaction -> expand_members -> CRC f-values.  The foreign-stream
-bridge (``_foreign_to_device``) is not ported yet.
+-> compaction -> expand_members -> CRC f-values.  Any other gzip stream
+takes the foreign-stream bridge, ``_foreign_to_device`` (``:833-932``):
+the host token decode of :mod:`..native`, then expand_members -> CRC
+f-values.
 
 The host helpers — member index, LS sync index, chunk spans, member
 header — are the port's own copies of the reference's (``:38-74``,
@@ -296,26 +298,30 @@ def decompress_to_device(data: bytes, verify: bool = False,
     path.  Otherwise an LF-indexed stream of single dynamic blocks whose
     groups of 128 members share one code table (litlen codes of at most
     12 bits, distance codes of at most 8) takes the speculative path.
+    Any other gzip stream (stdlib gzip, pigz, stored or fixed blocks,
+    per-member tables) takes the foreign-stream path,
+    :func:`_foreign_to_device`: a host token decode, then the same
+    expansion and CRC f-values on ``device``.
 
-    Raises ImportError for a stream neither path takes (the foreign-stream
-    path is not ported), DeflateError for a malformed block header, a
-    member the speculative decode cannot follow, or a corrupt
-    back-reference, GzipError for a CRC mismatch, and RuntimeError for
-    ``device="cuda"`` without CUDA.
+    Raises ImportError for a member larger than 1 MiB, DeflateError for a
+    malformed block, a member the speculative decode cannot follow, or a
+    corrupt back-reference, GzipError for a CRC or size mismatch or a
+    truncated trailer, ValueError for an empty stream (as the reference
+    does), and RuntimeError for ``device="cuda"`` without CUDA or a failed
+    build of the host token decoder.
     """
     dev = _device(device)
     data = bytes(data)
     try:
         groups = _prepare_sync_device(data, dev)
-    except ImportError as e:
+    except ImportError:
         refs = index_members(data)
-        if refs:
+        if refs is not None:
             try:
                 return _spec_to_device(data, refs, verify, dev)
-            except ImportError as spec_e:
-                e = spec_e
-        raise ImportError(f"{e}; the foreign-stream device path is not "
-                          "ported yet") from e
+            except ImportError:
+                pass
+        return _foreign_to_device(data, verify, refs, dev)
     plains, lens = [], []
     for prep in groups:
         plain, n_out, err, crc_f = _run_sync_chain(prep)
@@ -439,6 +445,110 @@ def _sync_to_plain(toks, bsz: int, max_nc: int, k_tok: int, n_tokens,
     packed = toks.view(bsz, max_nc * k_tok)
     plain, n_out, err = expand_members(packed, n_tokens, member_cap)
     return plain, n_out, err, crc32_f_rows(plain)
+
+
+#: largest foreign member the device expansion takes; larger members
+#: raise ImportError (callers take a host decoder)
+_FOREIGN_MEMBER_CAP = 1 << 20
+
+
+def _foreign_to_device(data: bytes, verify: bool,
+                       refs: list[MemberRef] | None, device):
+    """decompress_to_device for foreign streams: members with their own
+    dynamic, fixed or stored blocks, with or without the LF index, from
+    any writer (stdlib gzip, pigz, the port's own stored members).
+
+    The entropy decode runs on the host, in the port's C token decoder
+    (:mod:`..native`): LF-indexed members as one threaded batch, others
+    one at a time, each member's extent taken from its end bit.  The
+    tokens then go through the sync path's expansion and CRC f-values on
+    ``device``.  Output shapes follow the reference's rule: tokens padded
+    to a multiple of 1024, rows to a power of two of at least 1024.
+    """
+    packed, nt, sizes, crcs_expected, out_cap = _foreign_tokens(data, refs)
+    plain, _n_out, err = expand_members(torch.from_numpy(packed).to(device),
+                                        torch.from_numpy(nt).to(device),
+                                        out_cap)
+    if bool(err.any()):
+        raise DeflateError("bad back-reference in device expansion")
+    if verify:
+        crcs = crc32_from_padded_f(crc32_f_rows(plain).cpu().numpy(),
+                                   np.asarray(sizes, np.int64), out_cap)
+        for i in range(len(sizes)):
+            if int(crcs[i]) != int(crcs_expected[i]):
+                raise fgzip.GzipError(f"gzip CRC mismatch in member {i}")
+    return plain, torch.from_numpy(np.asarray(sizes, np.int64).astype(
+        np.int32)).to(device)
+
+
+def _foreign_tokens(data: bytes, refs: list[MemberRef] | None):
+    """The host half of :func:`_foreign_to_device`: (packed (B, t_cap)
+    int32 tokens, n_tokens (B,) int32, sizes, expected CRCs) of every
+    member, from the trailers and the C token decoder, and the width of
+    the plaintext rows, out_cap."""
+    from .. import native
+
+    if refs is not None:
+        # indexed: extents are known, so the token decode runs threaded
+        sizes, crcs_expected = [], []
+        for ref in refs:
+            c, s = struct.unpack_from("<II", data, ref.end - 8)
+            sizes.append(s)
+            crcs_expected.append(c)
+        if max(sizes, default=0) > _FOREIGN_MEMBER_CAP:
+            raise ImportError("foreign member too large for the "
+                              "device expansion footprint")
+        t_cap = max(1024, -(-max(max(sizes), 1) // 1024) * 1024)
+        packed, counts, osz = native.inflate_tokens_batch(
+            data, [r.body for r in refs], [r.end - 8 for r in refs], t_cap)
+        if (osz.astype(np.int64) != np.asarray(sizes)).any():
+            raise fgzip.GzipError("gzip ISIZE mismatch")
+        return (packed, counts.astype(np.int32), sizes, crcs_expected,
+                _foreign_out_cap(sizes))
+    # un-indexed: extents come from the token decoder's end bit
+    sizes, crcs_expected, toks_l = [], [], []
+    pos = 0
+    while pos < len(data):
+        _hdr, body = fgzip.Header.decode(data, pos)
+        cap = 1 << 17
+        while True:
+            r = native.inflate_tokens(data, body, cap)
+            if r is not None:
+                break
+            cap *= 4
+            if cap > (len(data) - body) * 9 + 4096:
+                raise DeflateError("token decode cap overrun")
+        toks, osize, eb = r
+        end_byte = body + (eb + 7) // 8
+        if end_byte + 8 > len(data):
+            raise fgzip.GzipError(
+                "truncated gzip member (missing trailer)")
+        crc_exp, isize = struct.unpack_from("<II", data, end_byte)
+        if isize != (osize & 0xFFFFFFFF):
+            raise fgzip.GzipError(
+                f"gzip ISIZE mismatch in member {len(sizes)}")
+        if osize > _FOREIGN_MEMBER_CAP:
+            raise ImportError("foreign member too large for the "
+                              "device expansion footprint")
+        sizes.append(osize)
+        crcs_expected.append(crc_exp)
+        toks_l.append(toks)
+        pos = end_byte + 8
+    if not toks_l:
+        raise ImportError("empty stream")
+    t_cap = max(1024, -(-max(len(t) for t in toks_l) // 1024) * 1024)
+    packed = np.zeros((len(toks_l), t_cap), np.int32)
+    nt = np.zeros((len(toks_l),), np.int32)
+    for i, t in enumerate(toks_l):
+        packed[i, :len(t)] = t
+        nt[i] = len(t)
+    return packed, nt, sizes, crcs_expected, _foreign_out_cap(sizes)
+
+
+def _foreign_out_cap(sizes: list[int]) -> int:
+    """The reference's row width: a power of two of at least 1024 that
+    holds the largest member."""
+    return 1 << max(10, (max(max(sizes), 1) - 1).bit_length())
 
 
 def _spec_to_device(data: bytes, refs: list[MemberRef], verify: bool,

@@ -6,20 +6,39 @@
 512-position chunks, each chunk's share of the orbit is found from its
 entry position independently.  Two kernels in ``csrc/parse.cu``:
 :func:`chunk_exits` (each position's first orbit position past its
-chunk) and :func:`walk_emit` (threads the chunk entries, walks every
-chunk, and writes its tokens compacted into ``cap`` slots).  The layout
-is member-major ``(B, n)`` at every boundary.
+chunk: one warp per chunk) and :func:`walk_emit` (one block per member:
+threads the chunk entries in shared memory, walks every chunk with a
+warp, and writes its tokens compacted into ``cap`` slots); both resolve
+32 positions at a time by pointer doubling with warp shuffles.
+:func:`kernel_info` reports how they compiled.  The layout is
+member-major ``(B, n)`` at every boundary.
 
 Token packing (int32): ``a | b << 9``, a = literal byte or match length,
 b = distance; -1 marks an empty slot (a hole).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
 
 CHUNK = 512
+
+
+def kernel_info(n: int = 65536) -> dict:
+    """The two kernels as compiled and at ``n`` positions a member:
+    registers, static shared, spill and dynamic shared bytes, and
+    resident blocks per SM."""
+    out = (ctypes.c_int * 10)()
+    err = _build.load().lf_parse_info(n, out)
+    if err != 0:
+        raise RuntimeError(f"lf_parse_info failed with error {err}")
+    keys = ("regs", "static_smem", "spill_bytes", "dynamic_smem",
+            "blocks_per_sm")
+    return {"chunk_exits": dict(zip(keys, out[0:5])),
+            "walk_emit": dict(zip(keys, out[5:10]))}
 
 
 def chunk_exits_plain(jump: torch.Tensor) -> torch.Tensor:
@@ -52,7 +71,8 @@ def chunk_exits(jump: torch.Tensor) -> torch.Tensor:
         return chunk_exits_plain(jump)
     if jump.device.type != "cuda":
         raise ValueError(f"chunk_exits: unsupported device {jump.device}")
-    jump = jump.contiguous()
+    if not jump.is_contiguous():
+        jump = jump.contiguous()
     exits = torch.empty_like(jump)
     _build.launch("lf_chunk_exits", jump.data_ptr(), exits.data_ptr(), bsz,
                   n)
@@ -109,8 +129,9 @@ def walk_emit(jump: torch.Tensor, tok: torch.Tensor, exits: torch.Tensor,
         return walk_emit_plain(jump, tok, exits, cap)
     if jump.device.type != "cuda":
         raise ValueError(f"walk_emit: unsupported device {jump.device}")
-    jump, tok, exits = (t.to(torch.int32).contiguous()
-                        for t in (jump, tok, exits))
+    jump, tok, exits = (
+        t if t.dtype == torch.int32 and t.is_contiguous()
+        else t.to(torch.int32).contiguous() for t in (jump, tok, exits))
     nc = n // CHUNK
     out = torch.empty((bsz, nc * cap), dtype=torch.int32, device=jump.device)
     ovf = torch.empty((bsz, nc), dtype=torch.int32, device=jump.device)

@@ -75,14 +75,16 @@ def test_gzip_round_trip(small):
 
 
 def test_decompress_to_device_round_trip(small):
-    """The first batch has no stored member: the port decodes it."""
+    """The whole stream, stored members included (the foreign-stream
+    path), and its first batch alone (the sync path) read back."""
     data, stream = small
     refs = pgzf.index_members(stream)
-    head = stream[:refs[127].end]
-    out, lengths = pgzf.decompress_to_device(head, verify=True,
-                                             device="cpu")
-    live = torch.arange(out.shape[1])[None, :] < lengths[:, None]
-    assert out[live].numpy().tobytes() == data[:128 * 1024]
+    for part, plain in ((stream, data),
+                        (stream[:refs[127].end], data[:128 * 1024])):
+        out, lengths = pgzf.decompress_to_device(part, verify=True,
+                                                 device="cpu")
+        live = torch.arange(out.shape[1])[None, :] < lengths[:, None]
+        assert out[live].numpy().tobytes() == plain
 
 
 def test_empty_input_is_one_stored_member():

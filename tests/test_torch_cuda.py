@@ -166,6 +166,44 @@ def test_decompress_to_device_on_cuda(dev, name, monkeypatch):
     np.testing.assert_array_equal(lengths.cpu().numpy() > 0, True)
 
 
+def _foreign_stdlib():
+    """Stdlib gzip members at levels 1, 6 and 9 and a member of random
+    bytes (stored blocks), no index."""
+    plain = gzip.decompress((DATA / "pgzf_sync_zipf_2m.pgz").read_bytes())
+    rng = np.random.default_rng(6)
+    parts = [(plain[:65536], 1), (plain[65536:150000], 6),
+             (plain[150000:151000], 9),
+             (rng.integers(0, 256, 5000, dtype=np.uint8).tobytes(), 6)]
+    return b"".join(gzip.compress(p, compresslevel=lv) for p, lv in parts)
+
+
+@pytest.mark.parametrize("make", [
+    _foreign_stdlib,
+    lambda: (DATA / "pgzf_encode_small.pgz").read_bytes()],
+    ids=["stdlib_gzip", "pgzf_encode_small"])
+def test_foreign_decompress_to_device_on_cuda(dev, make, monkeypatch):
+    """The foreign-stream path on the card: rank and resolve launched
+    once, no plain version reached, rows equal to stdlib gzip's."""
+    data = make()
+
+    def no_plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, fn in ((rank, "rank_emit_src_plain"),
+                    (expand, "resolve_bytes_plain")):
+        monkeypatch.setattr(mod, fn, no_plain)
+    before = [rank.rank_emit_src.launches, expand.resolve_bytes.launches]
+    out, lengths = pgzf.decompress_to_device(data, verify=True,
+                                             device="cuda")
+    after = [rank.rank_emit_src.launches, expand.resolve_bytes.launches]
+    assert out.is_cuda and lengths.is_cuda
+    assert all(a == b + 1 for a, b in zip(after, before))
+    live = (torch.arange(out.shape[1], device=dev)[None, :]
+            < lengths[:, None])
+    assert bytes(out[live].cpu().numpy()) == gzip.decompress(data)
+    assert not out[~live].any()
+
+
 # ---- encode kernels --------------------------------------------------------
 
 
@@ -289,6 +327,73 @@ def test_parse_kernels_match_plain(enc_batch, cap):
     for got, want in zip(parse.walk_emit(jump, tok, ex, cap),
                          parse.walk_emit_plain(jump, tok, ex, cap)):
         _eq(got, want)
+
+
+def _parse_case(dev, bsz: int, n: int, kind: str, seed: int):
+    """(jump, tok) of ``bsz`` members of ``n`` positions: all literals
+    (jump = p + 1, the longest walk), all 258-byte matches, or a mix;
+    member i > 0 has holes (tok = -1) from ``n - 700 * i``."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n)[None, :]
+    if kind == "literals":
+        ln = np.ones((bsz, n), np.int64)
+    elif kind == "max_matches":
+        ln = np.full((bsz, n), 258)
+    else:
+        ln = np.where(rng.random((bsz, n)) < 0.3,
+                      rng.integers(3, 259, (bsz, n)), 1)
+    jump = np.minimum(idx + ln, n).astype(np.int32)
+    tok = (rng.integers(0, 256, (bsz, n))
+           | rng.integers(0, 32768, (bsz, n)) << 9).astype(np.int32)
+    n_valid = np.maximum(n - 700 * np.arange(bsz), 1)
+    tok[idx >= n_valid[:, None]] = -1
+    return (torch.from_numpy(jump).to(dev), torch.from_numpy(tok).to(dev))
+
+
+@pytest.mark.parametrize("cap", [384, 512])
+@pytest.mark.parametrize("kind", ["literals", "max_matches", "mixed"])
+@pytest.mark.parametrize("bsz,n", [(3, 1024), (8, 65536)])
+def test_parse_kernels_match_plain_on_orbits(dev, bsz, n, kind, cap):
+    """Both kernels bit-identical to their plain versions on hand-made
+    orbits, with holes; all literals overflow a 384-slot chunk."""
+    jump, tok = _parse_case(dev, bsz, n, kind, seed=n + len(kind) + cap)
+    ex = parse.chunk_exits(jump)
+    _eq(ex, parse.chunk_exits_plain(jump))
+    out, ovf = parse.walk_emit(jump, tok, ex, cap)
+    out_p, ovf_p = parse.walk_emit_plain(jump, tok, ex, cap)
+    _eq(out, out_p)
+    _eq(ovf, ovf_p)
+    if kind == "literals":
+        assert bool(ovf[0].all()) == (cap < 512)
+
+
+def test_walk_emit_on_two_devices(dev):
+    """The walk's shared-memory limit is raised on each device it runs on:
+    after a launch on the first card, a launch on the second (the current
+    device there) still takes its 164 KB of dynamic shared memory."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for i in (0, 1):
+        d = torch.device("cuda", i)
+        with torch.cuda.device(d):
+            jump, tok = _parse_case(d, 2, 65536, "mixed", seed=i)
+            ex = parse.chunk_exits(jump)
+            _eq(ex, parse.chunk_exits_plain(jump))
+            for got, want in zip(parse.walk_emit(jump, tok, ex, 384),
+                                 parse.walk_emit_plain(jump, tok, ex, 384)):
+                assert got.device == d
+                _eq(got, want)
+
+
+def test_parse_kernel_info(dev):
+    """Both parse kernels compile without spills and fit on an SM at the
+    main path's shape (the walk stages 127 chunk heads, 16 slot rows and
+    the entries)."""
+    info = parse.kernel_info(65536)
+    for k in ("chunk_exits", "walk_emit"):
+        assert info[k]["spill_bytes"] == 0 and info[k]["blocks_per_sm"] >= 1
+    assert info["walk_emit"]["dynamic_smem"] == 4 * (128 + 16 * 512
+                                                     + 127 * 258)
 
 
 def test_hist_fields_pack_kernels_match_plain(enc_batch):

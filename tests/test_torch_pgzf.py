@@ -116,17 +116,28 @@ def test_crc_mismatch_raises(small):
 
 
 def test_stream_without_sync_index_is_not_ported():
+    """Streams without the LS index that the speculative path does not
+    take either (the name is from before the foreign-stream path was
+    ported) now decode as the reference decodes them, through
+    ``_foreign_to_device``: the reference's native-engine PGZF (LF index,
+    per-member tables) and stdlib gzip, into rows of the next power of two
+    (at least 1024) of the largest member; the empty stream raises the
+    reference's ValueError."""
     from libflate_tpu import native
     from libflate_tpu.formats import pgzf as ref_pgzf
     if not native.available():
         pytest.skip("native engine unavailable")
     stream = ref_pgzf.compress(b"abc" * 5000, member_size=4096,
                                engine="native")
-    with pytest.raises(ImportError, match="not ported"):
-        port.decompress_to_device(stream, device="cpu")
-    with pytest.raises(ImportError, match="not ported"):
-        port.decompress_to_device(gzip.compress(b"abc"), device="cpu")
-    with pytest.raises(ImportError, match="not ported"):
+    for data, shape in ((stream, (4, 4096)),
+                        (gzip.compress(b"abc"), (1, 1024))):
+        out, lengths = port.decompress_to_device(data, verify=True,
+                                                 device="cpu")
+        plain = gzip.decompress(data)
+        assert out.shape == shape and int(lengths.sum()) == len(plain)
+        live = torch.arange(out.shape[1])[None, :] < lengths[:, None]
+        assert out[live].numpy().tobytes() == plain
+    with pytest.raises(ValueError):
         port.decompress_to_device(b"", device="cpu")
 
 
@@ -165,6 +176,15 @@ assert torch.equal(spec_out, out) and torch.equal(spec_len, lengths)
 data = bytes(range(256)) * 8 + b"abc" * 2000
 import gzip
 assert gzip.decompress(pgzf.compress(data, 1024, device="cpu")) == data
+# the foreign-stream path: stdlib gzip (no index) and a stored member
+import numpy as np
+rnd = np.random.default_rng(0).integers(0, 256, 3000, np.uint8).tobytes()
+for foreign in (gzip.compress(data) + gzip.compress(rnd),
+                pgzf.compress(rnd, 1024, device="cpu")):
+    f_out, f_len = pgzf.decompress_to_device(foreign, verify=True,
+                                             device="cpu")
+    f_live = torch.arange(f_out.shape[1])[None, :] < f_len[:, None]
+    assert f_out[f_live].numpy().tobytes() == gzip.decompress(foreign)
 from libflate_tpu_torch.serial.deflate import EncodeOptions
 chain8 = EncodeOptions(matcher="chain", max_chain=8, lcp_rounds=8)
 assert gzip.decompress(pgzf.compress(data, 1024, options=chain8,
@@ -181,9 +201,10 @@ print(len(mods), int(lengths.sum()))
 
 def test_imports_and_runs_with_jax_blocked(small):
     """Every port module and chip_smoke.py import, decode (through the
-    sync path and, with the LS index stripped, the speculative path) and
-    encode (by default, in chain-8 quality mode and with the hash matcher)
-    with both JAX and the reference package blocked."""
+    sync path, with the LS index stripped the speculative path, and stdlib
+    gzip and stored members the foreign-stream path with its host token
+    decoder) and encode (by default, in chain-8 quality mode and with the
+    hash matcher) with both JAX and the reference package blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
         cwd=ROOT, capture_output=True, text=True, timeout=300)

@@ -188,20 +188,34 @@ def _tables_differ():
     (lambda: strip_sync_index((DATA / "pgzf_encode_small.pgz")
                               .read_bytes()), "non-uniform member layout"),
     (_tables_differ, "tables differ within a group")])
-def test_streams_the_spec_path_refuses(spies, make, why):
+def test_streams_the_spec_path_refuses(spies, make, why, monkeypatch):
     """A stored member, or two tables in one group of 128: ImportError
-    in the reference's speculative staging and in the port, whose
-    foreign-stream path is not ported."""
+    in the reference's speculative staging and in the port's, which then,
+    as the reference does, hands the stream to the foreign-stream path:
+    the rows equal gzip's plaintext."""
     data = make()
     with reference_spec([]) as ref:
         with pytest.raises(ImportError, match=why):
             next(ref._spec_token_groups(data, ref.index_members(data)))
-    with pytest.raises(ImportError, match=f"{why}.*not ported"):
-        port.decompress_to_device(data, verify=True, device="cpu")
+    with pytest.raises(ImportError, match=why):
+        next(port._spec_token_groups(data, port.index_members(data), "cpu"))
+    foreign = []
+    real_foreign = port._foreign_to_device
+    monkeypatch.setattr(port, "_foreign_to_device",
+                        lambda *a: foreign.append(a[2]) or real_foreign(*a))
+    out, lengths = port.decompress_to_device(data, verify=True,
+                                             device="cpu")
     assert spies == {"spec": 1, "sync": 0}
+    assert len(foreign) == 1 and foreign[0] is not None     # indexed
+    live = torch.arange(out.shape[1])[None, :] < lengths[:, None]
+    assert out[live].numpy().tobytes() == gzip.decompress(data)
 
 
 def test_empty_stream_is_import_error(spies):
-    with pytest.raises(ImportError, match="not ported"):
+    """The name is from before the foreign-stream path was ported: the
+    empty stream now raises the reference's ValueError (an empty member
+    index is not None, so the speculative staging reduces an empty
+    array)."""
+    with pytest.raises(ValueError):
         port.decompress_to_device(b"", device="cpu")
-    assert spies == {"spec": 0, "sync": 0}
+    assert spies == {"spec": 1, "sync": 0}
