@@ -11,7 +11,7 @@ Phases, each of which raises on failure (exit code != 0):
    one nvcc per source, all at once, for sm_90a, and the host token
    decoder (``libflate_tpu_torch/native``) with g++; print the sort
    matcher's and the parse's registers, shared memory and resident
-   clusters / blocks at n = 65536;
+   clusters / blocks at n = 65536, and the rank's and the pack's;
 3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
    a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
    gzip is the oracle; the host staging time is printed;
@@ -55,7 +55,12 @@ Phases, each of which raises on failure (exit code != 0):
 8. byte identity with every committed reference stream
    (``tests/data/pgzf_encode_*.pgz``, written by the JAX reference, each
    with the options and matcher it was written with);
-9. timing with CUDA events (kernels, plain versions, yardsticks, the
+9. timing with CUDA events (kernels, plain versions, yardsticks, among
+   them ``torch.searchsorted`` of every output position, the search half
+   of the rank kernel only, which is printed beside it and is not its
+   ``library_ms``; the rank and pack kernels also launched alone, 48
+   back to back, on the same inputs and cycling through four copies of
+   them (more bytes than L2 holds), beside the pack's row memset; the
    sync, speculative and foreign decode chains, the chains of the three
    encode modes) and on the host clock (the end-to-end calls, host staging
    and the foreign path's host token decode split out), each with the
@@ -87,6 +92,7 @@ DATA = ROOT / "tests" / "data"
 FIXTURE = DATA / "pgzf_sync_zipf_2m.pgz"
 COPIES = 32
 HBM_BYTES_PER_MS = 3.35e12 / 1e3      # H100 SXM data sheet, 80 GB HBM3
+COLD_COPIES = 4                        # input copies for the cold timings
 #: the quality mode of the reference's bench: EncodeOptions fields
 QUALITY = {"matcher": "chain", "max_chain": 8, "lcp_rounds": 8}
 #: reference stream -> (EncodeOptions fields, LIBFLATE_DEVICE_MATCHER) it
@@ -155,6 +161,23 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def cuda_ms_many(fns, n: int) -> float:
+    """CUDA-event time of ``n`` calls back to back, cycling through
+    ``fns``, over ``n``: the host time of a call hides behind the
+    device's work on the ones before."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for i in range(n):
+        fns[i % len(fns)]()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
 def kname(fn) -> str:
     """A kernel wrapper's key: its module's last name and its own
     (``parse.walk_emit`` and ``decode.walk_emit`` are two kernels)."""
@@ -221,6 +244,8 @@ def main() -> None:
         f"[{card_line}]")
     log(f"parse.cu at n=65536: {json.dumps(parse.kernel_info(65536))} "
         f"[{card_line}]")
+    log(f"rank.cu: {json.dumps(rank.kernel_info())} [{card_line}]")
+    log(f"pack.cu: {json.dumps(pack.kernel_info())} [{card_line}]")
 
     # 3. decode input and oracle
     stream = FIXTURE.read_bytes() * COPIES
@@ -662,6 +687,20 @@ def main() -> None:
     sym = torch.cat([
         torch.where(b > 0, hist.length_symbol(a.clamp(3, 258)), a)[valid],
         hist.DIST_BIN0 + hist.dist_symbol(b[valid & (b > 0)])])
+    # rank: the valid prefix of starts, pk and valid (the slots past it
+    # are not needed), n_out, and src and lit written once
+    rank_bytes = (int(rk_args[2].sum()) * (4 + 4 + 1)
+                  + nbytes(rk_args[3], src, lit))
+    # pack: every width, the 32-byte sectors of values that hold a nonzero
+    # width (a zero-width field's value is not needed), the starts, words
+    live_sectors = int((widths.view(-1, 8) > 0).any(dim=1).sum())
+    pack_bytes = nbytes(widths, cstarts, words) + 32 * live_sectors
+    log(f"data-dependent bounds: rank reads {int(rk_args[2].sum())} valid "
+        f"of {rk_args[2].numel()} token slots, {rank_bytes} bytes "
+        f"(every slot: {nbytes(*rk_args[:4], src, lit)}); pack reads "
+        f"{live_sectors} of {values.numel() // 8} value sectors, "
+        f"{pack_bytes} bytes (every value: "
+        f"{nbytes(values, widths, cstarts, words)})")
     rows = [
         # name, source, replaces, kernel, plain, library, bytes, reps
         (kname(sd.sync_decode), "libflate_tpu_torch/csrc/sync_decode.cu",
@@ -673,7 +712,7 @@ def main() -> None:
          "libflate_tpu/ops/pallas_rank.py:150",
          lambda: rank.rank_emit_src(*rk_args),
          lambda: rank.rank_emit_src_plain(*rk_args), None,
-         nbytes(*rk_args[:4], src, lit), 20, 3),
+         rank_bytes, 20, 3),
         (kname(expand.resolve_bytes), "libflate_tpu_torch/csrc/resolve.cu",
          "libflate_tpu/ops/pallas_expand.py:74",
          lambda: expand.resolve_bytes(src, lit),
@@ -715,7 +754,7 @@ def main() -> None:
          "libflate_tpu/ops/pallas_pack.py:61",
          lambda: pack.pack_stitch(values, widths, cstarts, w_out),
          lambda: pack.pack_stitch_plain(values, widths, cstarts, w_out),
-         None, nbytes(values, widths, cstarts, words), 20, 3),
+         None, pack_bytes, 20, 3),
         (kname(lcp.match_lengths), "libflate_tpu_torch/csrc/lcp.cu",
          "libflate_tpu/ops/pallas_lcp.py:72",
          lambda: lcp.match_lengths(*lcp_args, **lcp_kw),
@@ -781,6 +820,62 @@ def main() -> None:
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
             f"[{card_line}]")
     row = {r["name"]: r for r in summary}
+    # the search half of rank_emit_src alone: every position searched in
+    # the sentinel starts; not library_ms, since it computes neither src
+    # nor lit, and the port never calls it
+    rk_sent = rank._sentinel_starts(rk_args[0], rk_args[2], cap)
+    rk_pos = torch.arange(cap, dtype=torch.int32, device=dev).expand(
+        rk_sent.shape[0], cap).contiguous()
+    search_ms = cuda_ms(
+        lambda: torch.searchsorted(rk_sent, rk_pos, right=True), 20)
+    rnk = row[kname(rank.rank_emit_src)]
+    log(f"rank yardstick: torch.searchsorted(right=True) of every output "
+        f"position {tuple(rk_pos.shape)} in the starts {search_ms:.4f} ms "
+        f"(the search half of rank_emit_src only, not its library_ms); "
+        f"rank_emit_src {rnk['ms']:.4f} ms, bound {rnk['bound_ms']:.4f} "
+        f"[{card_line}]")
+    del rk_sent, rk_pos
+    # the two kernels redesigned last, launched alone back to back (outputs
+    # allocated once; the pack's rows zeroed once, which its plain stores
+    # and atomicOr then leave as they are), beside the pack's row memset:
+    # on the same inputs each time (warm: part of them stays in the 50 MB
+    # L2), and cycling through COLD_COPIES copies of the inputs (cold: a
+    # launch's inputs were last read three launches and > 300 MB before)
+    src_a, lit_a = torch.empty_like(src), torch.empty_like(lit)
+    words_a = torch.zeros_like(words)
+
+    def rank_alone(st_, pk_, va_, no_):
+        return lambda: _build.launch(
+            "lf_rank_emit_src", st_.data_ptr(), va_.data_ptr(),
+            pk_.data_ptr(), no_.data_ptr(), src_a.data_ptr(),
+            lit_a.data_ptr(), bsz, st_.shape[1], cap)
+
+    def pack_alone(v_, w_, s_):
+        return lambda: _build.launch(
+            "lf_pack_stitch", v_.data_ptr(), w_.data_ptr(), s_.data_ptr(),
+            words_a.data_ptr(), v_.shape[0], v_.shape[1] // pack.F_CH,
+            w_out)
+
+    rk_copies = [[x.clone() for x in rk_args[:4]] for _ in range(COLD_COPIES)]
+    pk_copies = [[x.clone() for x in (values, widths, cstarts)]
+                 for _ in range(COLD_COPIES)]
+    alone = {
+        "rank_emit_src warm": [rank_alone(*rk_args[:4])],
+        "rank_emit_src cold": [rank_alone(*c) for c in rk_copies],
+        "pack_stitch warm": [pack_alone(values, widths, cstarts)],
+        "pack_stitch cold": [pack_alone(*c) for c in pk_copies],
+        "pack rows memset": [lambda: torch.zeros_like(words)],
+    }
+    alone_ms = {k: cuda_ms_many(fns, 12 * COLD_COPIES)
+                for k, fns in alone.items()}
+    torch.cuda.synchronize()
+    if not (torch.equal(src_a, src) and torch.equal(lit_a, lit)
+            and torch.equal(words_a, words)):
+        raise AssertionError("a kernel launched alone gave other outputs")
+    log(f"launched alone, {12 * COLD_COPIES} back to back, ms per launch: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in alone_ms.items())
+        + f" [{card_line}]")
+    del src_a, lit_a, words_a, rk_copies, pk_copies
     srt, scn = row[kname(sm.sort_keys)], row[kname(sm.scan_emit)]
     log(f"sort matcher: sort_keys {srt['ms']:.4f} ms against torch.sort("
         f"stable=True) {srt['library_ms']:.4f} ms (ratio "

@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: "p" pointer or stream (c_void_p), "i" int, "q" int64
 _SIGNATURES = {
     "lf_sync_decode": "pqpppppipiip",
-    "lf_rank_emit_src": "pppppiiip",
+    "lf_rank_emit_src": "ppppppiiip",
+    "lf_rank_info": "p",
     "lf_resolve_bytes": "pppiip",
     "lf_sort_keys": "pppiiiip",
     "lf_scan_emit": "pppppiiiiiiip",
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "lf_token_hist": "pppqpp",
     "lf_token_fields": "pppqppppp",
     "lf_pack_stitch": "ppppiiip",
+    "lf_pack_info": "p",
     "lf_match_lengths": "pppppiiiiip",
     "lf_gather_rows": "pppiiiip",
     "lf_hash_candidates": "ppiip",

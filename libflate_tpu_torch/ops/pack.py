@@ -6,17 +6,32 @@ of the two kernels it feeds: ``pack_slots`` in
 
 Each member's (value, width) field stream is cut into 256-field
 chunks; a chunk's absolute start bit is the width cumsum before it.
-:func:`pack_stitch` (``csrc/pack.cu``) packs every chunk at its start
-and OR-s the words into the member row in one pass, so the rows hold the
-LSB-first bit stream of all fields, zero past its end.
+:func:`pack_stitch` (``csrc/pack.cu``: a warp per chunk) packs every
+chunk at its start and writes its words into the member row in one
+pass, so the rows hold the LSB-first bit stream of all fields, zero past
+its end.  :func:`kernel_info` gives how the kernel compiled.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import _build
 
 F_CH = 256                 # fields per chunk
+
+
+def kernel_info() -> dict:
+    """The kernel as compiled: registers, static shared, spill and
+    dynamic shared bytes, resident blocks per SM, chunks (one a warp)
+    per block and threads per block."""
+    out = (ctypes.c_int * 7)()
+    err = _build.load().lf_pack_info(out)
+    if err != 0:
+        raise RuntimeError(f"lf_pack_info failed with error {err}")
+    return dict(zip(("regs", "static_smem", "spill_bytes", "dynamic_smem",
+                     "blocks_per_sm", "chunks_per_block", "threads"), out))
 
 
 def pack_stitch_plain(values, widths, starts, w_out: int) -> torch.Tensor:
@@ -44,10 +59,13 @@ def pack_stitch_plain(values, widths, starts, w_out: int) -> torch.Tensor:
 
 def pack_stitch(values: torch.Tensor, widths: torch.Tensor,
                 starts: torch.Tensor, w_out: int) -> torch.Tensor:
-    """Pack (B, F) int32 fields (F a multiple of 256, widths <= 32) whose
-    chunks start at ``starts`` (B, F/256) bits into (B, w_out) int32
-    rows of the LSB-first stream; words past ``w_out`` are dropped.  CPU
-    tensors run :func:`pack_stitch_plain`; CUDA tensors the kernel."""
+    """Pack (B, F) int32 fields (F a multiple of 256) whose chunks start
+    at ``starts`` (B, F/256) bits into (B, w_out) int32 rows of the
+    LSB-first stream.  Widths are clamped to [0, 32] and each value is
+    masked to its width.  Starts are >= 0 and the chunks' bit ranges do
+    not overlap (as :func:`chunk_starts` gives them); words past
+    ``w_out`` are dropped.  CPU tensors run :func:`pack_stitch_plain`;
+    CUDA tensors launch the kernel."""
     bsz, f = values.shape
     if (widths.shape != values.shape or f % F_CH
             or starts.shape != (bsz, f // F_CH)):
@@ -56,8 +74,11 @@ def pack_stitch(values: torch.Tensor, widths: torch.Tensor,
         return pack_stitch_plain(values, widths, starts, w_out)
     if values.device.type != "cuda":
         raise ValueError(f"pack_stitch: unsupported device {values.device}")
-    v, w, s = (t.to(torch.int32).contiguous()
+    v, w, s = (t if t.dtype == torch.int32 and t.is_contiguous()
+               else t.to(torch.int32).contiguous()
                for t in (values, widths, starts))
+    # the kernel reads fields with 16-byte loads
+    v, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (v, w))
     out = torch.zeros((bsz, w_out), dtype=torch.int32, device=v.device)
     _build.launch("lf_pack_stitch", v.data_ptr(), w.data_ptr(),
                   s.data_ptr(), out.data_ptr(), bsz, f // F_CH, w_out)

@@ -113,6 +113,125 @@ def test_rank_kernel_error_rows_match_plain(dev):
     assert err.tolist() == [True, True, False]
 
 
+def _match(length: int, dist: int) -> int:
+    return length | dist << 9
+
+
+def _rank_members(out_cap: int, seed: int) -> list:
+    """Token lists of the rank kernel's hard cases at ``out_cap``."""
+    tile = rank.kernel_info()["tile"]
+    rng = np.random.default_rng(seed)
+    text = [int(x) for x in rng.integers(97, 123, out_cap)]
+    mixed = [text[i] if rng.random() < 0.5
+             else _match(int(rng.integers(3, 259)), int(rng.integers(1, 400)))
+             for i in range(out_cap // 3 + 1)]
+    return [
+        # overflow: thousands of starts clipped to out_cap - 1
+        [ord("x")] + [_match(258, 1)] * (out_cap // 258 + 3000),
+        # more than TILE zero-length matches at one start, then a run
+        [97, 98, 99] + [_match(0, 2)] * (tile + 904) + [122,
+                                                        _match(258, 1)],
+        [],                                        # n_tokens = 0
+        # distance-1 runs of 258 bytes across every tile edge
+        [ord("a")] + [_match(258, 1)] * (out_cap // 258 + 1),
+        [ord("a"), _match(5, 3)] + text[:50],      # a bad distance
+        mixed,
+    ]
+
+
+def _rank_args(dev, members, out_cap: int, n_out=None):
+    t_cap = max(len(m) for m in members) + 7
+    packed = torch.zeros((len(members), t_cap), dtype=torch.int32)
+    for i, m in enumerate(members):
+        packed[i, :len(m)] = torch.tensor(m, dtype=torch.int32)
+    n_tok = torch.tensor([len(m) for m in members], dtype=torch.int32)
+    args = list(device_expand.rank_inputs(packed, n_tok, out_cap)[:4])
+    if n_out is not None:
+        args[3] = torch.tensor(n_out, dtype=torch.int32)
+    return [a.to(dev) for a in args] + [out_cap]
+
+
+@pytest.mark.parametrize("out_cap", [1000, 1024, 4097, 70000])
+def test_rank_kernel_hard_cases_match_plain(dev, out_cap):
+    """Clipped and zero-length duplicate starts (more than a tile of
+    them), an empty member, 258-byte distance-1 runs over the tile edges,
+    a bad distance, and out_caps the main path never uses."""
+    args = _rank_args(dev, _rank_members(out_cap, out_cap), out_cap)
+    for got, want in zip(rank.rank_emit_src(*args),
+                         rank.rank_emit_src_plain(*args)):
+        _eq(got, want)
+
+
+def test_rank_kernel_n_out_mid_tile_matches_plain(dev):
+    """Tiles that are part live, part padding, wholly padding, and
+    n_out outside [0, out_cap]."""
+    tile = rank.kernel_info()["tile"]
+    out_cap = 3 * tile + 100
+    members = _rank_members(out_cap, 7)[3:] * 2 + [[ord("q")]]
+    n_out = [0, 1, tile - 1, tile + 1234, out_cap - 3,
+             out_cap + 5, -4]
+    args = _rank_args(dev, members, out_cap, n_out)
+    for got, want in zip(rank.rank_emit_src(*args),
+                         rank.rank_emit_src_plain(*args)):
+        _eq(got, want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_rank_kernel_random_tables_match_plain(dev, seed):
+    """Random valid prefixes with repeated starts, random distances
+    (many before the member), random n_out, B = 1024 at seed 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bsz, t, out_cap = (1024, 2048, 8192) if seed == 0 else (5, 3000, 10000)
+    step = torch.randint(0, 9, (bsz, t), generator=g, device=dev,
+                         dtype=torch.int32)
+    starts = (torch.cumsum(step, 1, dtype=torch.int32) - step)
+    starts[1:2] += 3                               # no token at position 0
+    pk = torch.randint(0, 2**25, (bsz, t), generator=g, device=dev,
+                       dtype=torch.int32)
+    pk = torch.where(torch.rand((bsz, t), generator=g, device=dev) < 0.3,
+                     pk & 511, pk)
+    n_valid = torch.randint(0, t + 1, (bsz, 1), generator=g, device=dev)
+    valid = torch.arange(t, device=dev)[None, :] < n_valid
+    n_out = torch.randint(-10, out_cap + 10, (bsz,), generator=g,
+                          device=dev, dtype=torch.int32)
+    args = (starts, pk, valid, n_out, out_cap)
+    for got, want in zip(rank.rank_emit_src(*args),
+                         rank.rank_emit_src_plain(*args)):
+        _eq(got, want)
+
+
+def test_rank_kernel_extreme_starts_match_plain(dev):
+    """Starts far below 0 and near 2**31 (p - s wraps in int32, as in
+    the plain version), a first token that starts after position 0, an
+    invalid slot inside a tile, and a distance of 65535."""
+    starts = torch.tensor([[-2**31 + 2, -2**31 + 5, 7, 100],
+                           [3, 9, 9, 2**31 - 1],
+                           [5000, 5001, 9000, 9001]], dtype=torch.int32)
+    pk = torch.tensor([[_match(3, 7), _match(4, 65535), _match(5, 2), 97]]
+                      * 3, dtype=torch.int32)
+    valid = torch.tensor([[True, True, True, False], [True] * 4,
+                          [True, True, False, False]])
+    n_out = torch.tensor([4100, 9000, 12000], dtype=torch.int32)
+    args = [a.to(dev) for a in (starts, pk, valid, n_out)] + [12288]
+    for got, want in zip(rank.rank_emit_src(*args),
+                         rank.rank_emit_src_plain(*args)):
+        _eq(got, want)
+
+
+def test_rank_and_pack_kernel_info(dev):
+    """Both kernels compile without spills, fit on an SM with static
+    shared memory only, and report the geometry they were built with: a
+    rank tile of whole 4-position runs over whole warps, one pack chunk a
+    warp."""
+    rk, pc = rank.kernel_info(), pack.kernel_info()
+    for info in (rk, pc):
+        assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1
+        assert 0 < info["static_smem"] <= 48 * 1024
+        assert info["dynamic_smem"] == 0 and info["threads"] % 32 == 0
+    assert rk["tile"] % (4 * rk["threads"]) == 0
+    assert pc["threads"] == 32 * pc["chunks_per_block"]
+
+
 @pytest.mark.parametrize("n", [3000, 4096, 70000])
 def test_resolve_kernel_random_pointers_match_plain(dev, n):
     g = torch.Generator(device=dev).manual_seed(n)
@@ -416,6 +535,71 @@ def test_hist_fields_pack_kernels_match_plain(enc_batch):
     w_out = (int(bits.max()) + 31) // 32 + 1
     _eq(pack.pack_stitch(values, widths, starts[:, :-1], w_out),
         pack.pack_stitch_plain(values, widths, starts[:, :-1], w_out))
+
+
+def _pack_widths(kind: str, bsz: int, f: int, g) -> torch.Tensor:
+    dev = g.device
+    w = torch.randint(-3, 33, (bsz, f), generator=g, device=dev,
+                      dtype=torch.int32)
+    if kind == "zero_runs":                       # runs and whole chunks
+        w[:, pack.F_CH:3 * pack.F_CH] = 0
+        w[:, 5 * pack.F_CH + 7:5 * pack.F_CH + 200] = 0
+        w[0] = 0                                   # a member of nothing
+    elif kind == "width32":
+        w = torch.where(w > 16, 32, w.clamp(min=0))
+    elif kind == "negative":
+        w = torch.where(w > 20, -w, w)
+    elif kind == "aligned":                        # every start % 32 == 0
+        fours = (w[:, ::4] > 16).repeat_interleave(4, dim=1)
+        w = torch.where(fours, 32, 8).to(torch.int32)
+    elif kind == "one_word":                       # a chunk in one word
+        w = torch.zeros_like(w)
+        w[:, ::pack.F_CH] = 5
+        w[:, 3::pack.F_CH] = 9
+    return w
+
+
+@pytest.mark.parametrize("bsz,n_ch", [(1, 386), (128, 8)])
+@pytest.mark.parametrize("kind", ["random", "zero_runs", "width32",
+                                  "negative", "aligned", "one_word"])
+@pytest.mark.parametrize("cut", [False, True])
+def test_pack_kernel_hard_cases_match_plain(dev, bsz, n_ch, kind, cut):
+    """Zero-width runs and chunks, width 32 and negative widths (0),
+    word-aligned and unaligned chunk starts, chunks inside one word, and
+    w_out cut short (words past it dropped)."""
+    g = torch.Generator(device=dev).manual_seed(n_ch)
+    f = n_ch * pack.F_CH
+    values = torch.randint(-2**31, 2**31 - 1, (bsz, f), generator=g,
+                           device=dev, dtype=torch.int64).int()
+    widths = _pack_widths(kind, bsz, f, g)
+    starts, bits = pack.chunk_starts(widths.clamp(0, 32))
+    w_out = (int(bits.max()) + 31) // 32 + 1
+    if cut:
+        w_out = max(w_out // 3, 1)
+    got = pack.pack_stitch(values, widths, starts[:, :-1], w_out)
+    _eq(got, pack.pack_stitch_plain(values, widths, starts[:, :-1], w_out))
+    if kind == "aligned":
+        assert int((starts % 32).abs().sum()) == 0
+
+
+def test_pack_kernel_gaps_and_unaligned_tensors_match_plain(dev):
+    """Chunks with gaps between them, and values / widths whose data
+    pointer is not 16-byte aligned (the wrapper copies them)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    bsz, n_ch = 3, 4
+    f = n_ch * pack.F_CH
+    buf = torch.zeros((2 * bsz * f + 1,), dtype=torch.int32, device=dev)
+    values = buf[1:bsz * f + 1].view(bsz, f)
+    widths = buf[bsz * f + 1:].view(bsz, f)
+    values.copy_(torch.randint(-2**31, 2**31 - 1, (bsz, f), generator=g,
+                               device=dev, dtype=torch.int64))
+    widths.copy_(torch.randint(0, 33, (bsz, f), generator=g, device=dev))
+    assert values.data_ptr() % 16 and widths.data_ptr() % 16
+    starts = torch.tensor([[7, 9000, 20000, 40000]] * bsz, dtype=torch.int32,
+                          device=dev)
+    w_out = 40000 // 32 + 300
+    _eq(pack.pack_stitch(values, widths, starts, w_out),
+        pack.pack_stitch_plain(values, widths, starts, w_out))
 
 
 @pytest.mark.parametrize("name,member", [("pgzf_encode_small.pgz", 1024),

@@ -84,6 +84,130 @@ def ref(interpret, members):
             "rank_inputs": (starts, pk, valid, n_out)}
 
 
+def _m(length, dist):
+    return length | dist << 9
+
+
+@pytest.fixture(scope="module")
+def edge_ref(interpret):
+    """The rank kernel's hard cases, one reference call: an overflowing
+    member (1,490 starts clipped to out_cap - 1), 100 zero-length matches
+    at one start (the reference's 128-wide in-bucket search bounds how
+    many it can take), no tokens, distance-1 runs of 258 bytes with n_out ending
+    inside the second 1024-position vreg, a bad distance, and random
+    tokens with n_out cut mid-row."""
+    from libflate_tpu.ops.pallas_rank import rank_emit_src
+
+    rng = np.random.default_rng(5)
+    text = [int(x) for x in rng.integers(97, 123, 400)]
+    mixed = [text[i] if rng.random() < 0.5
+             else _m(int(rng.integers(3, 40)), int(rng.integers(1, 300)))
+             for i in range(400)]
+    members = [[ord("x")] + [_m(258, 1)] * 1500,
+               [97, 98, 99] + [_m(0, 2)] * 100 + [122, _m(258, 1)],
+               [],
+               [ord("a")] + [_m(258, 1)] * 7,
+               [ord("a"), _m(5, 3)] + text[:50],
+               mixed]
+    packed = np.zeros((len(members), 2048), np.int32)
+    for i, m in enumerate(members):
+        packed[i, :len(m)] = m
+    n_tok = np.array([len(m) for m in members], np.int32)
+    starts, pk, valid, n_out, _err = port_de.rank_inputs(
+        torch.from_numpy(packed), torch.from_numpy(n_tok), OUT_CAP)
+    n_out[5] = min(int(n_out[5]), 1500)
+    args = (starts, pk, valid, n_out)
+    want = tuple(np.array(a) for a in rank_emit_src(
+        *(jnp.asarray(a.numpy()) for a in args), OUT_CAP))
+    return args, want
+
+
+def test_rank_emit_src_plain_matches_reference_on_hard_cases(edge_ref):
+    args, want = edge_ref
+    assert int((args[0][0] == OUT_CAP - 1).sum()) > 1400
+    for got, w in zip(port_rank.rank_emit_src(*args, OUT_CAP), want):
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
+def _rank_oracle(starts, pk, valid, n_out, out_cap):
+    """(src, lit) one position at a time: a cursor walks the valid
+    tokens in order and stays on the last one whose start is <= p."""
+    starts, pk, valid, n_out = (np.asarray(x, np.int64)
+                                for x in (starts, pk, valid, n_out))
+    bsz = starts.shape[0]
+    src = np.zeros((bsz, out_cap), np.int64)
+    lit = np.zeros((bsz, out_cap), np.int64)
+    for b in range(bsz):
+        nv = int(valid[b].sum())
+        i = 0
+        for p in range(out_cap):
+            while i + 1 < nv and starts[b, i + 1] <= p:
+                i += 1
+            s = int(starts[b, i]) if nv else out_cap + 2
+            d = (int(pk[b, i]) >> 9) & 0xFFFF
+            if p >= n_out[b]:
+                src[b, p] = p
+            elif d == 0:
+                src[b, p], lit[b, p] = p, int(pk[b, i]) & 255
+            else:
+                src[b, p] = min(max((p - s) % d + s - d, 0), out_cap - 1)
+    return src, lit
+
+
+_ORACLE_CASES = {
+    "clipped_overflow": ([[ord("x")] + [_m(258, 1)] * 30], 1000, None),
+    "zero_length_past_a_bucket": (
+        [[97, 98, 99] + [_m(0, 2)] * 300 + [122, _m(258, 1)]], 1024, None),
+    "no_tokens": ([[], [ord("z")]], 1024, None),
+    "n_out_mid_row": ([[ord("a")] + [_m(258, 1)] * 20] * 3, 4097,
+                      [0, 1234, 4097]),
+    "distance_1_runs": ([[ord("a")] + [_m(258, 1)] * 7,
+                         [ord("b"), ord("c")] + [_m(100, 2)] * 9], 2048,
+                        None),
+    "bad_distance": ([[ord("a"), _m(5, 3), _m(40, 300)] + [98] * 20], 1024,
+                     None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ORACLE_CASES))
+def test_rank_emit_src_plain_matches_a_position_walk(case):
+    """The plain rank against a position-by-position walk of the tokens,
+    on inputs the reference cannot take (more than 128 starts in one
+    bucket) or that the kernel's tiles split."""
+    members, out_cap, n_out = _ORACLE_CASES[case]
+    t_cap = max(len(m) for m in members) + 5
+    packed = np.zeros((len(members), t_cap), np.int32)
+    for i, m in enumerate(members):
+        packed[i, :len(m)] = m
+    n_tok = torch.tensor([len(m) for m in members], dtype=torch.int32)
+    args = list(port_de.rank_inputs(torch.from_numpy(packed), n_tok,
+                                    out_cap)[:4])
+    if n_out is not None:
+        args[3] = torch.tensor(n_out, dtype=torch.int32)
+    got = port_rank.rank_emit_src(*args, out_cap)
+    for g, w in zip(got, _rank_oracle(*args, out_cap)):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_rank_emit_src_plain_matches_a_position_walk_on_random_tables():
+    """Random valid prefixes with repeated starts, a first token after
+    position 0, random distances and n_out."""
+    rng = np.random.default_rng(9)
+    bsz, t, out_cap = 4, 300, 1500
+    step = rng.integers(0, 9, (bsz, t))
+    starts = (np.cumsum(step, 1) - step + (np.arange(bsz) == 1)[:, None]
+              * 3).astype(np.int32)
+    pk = rng.integers(0, 2 ** 25, (bsz, t)).astype(np.int32)
+    pk = np.where(rng.random((bsz, t)) < 0.3, pk & 511, pk)
+    valid = np.arange(t)[None, :] < rng.integers(0, t + 1, (bsz, 1))
+    n_out = rng.integers(-5, out_cap + 5, bsz).astype(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (starts, pk, valid, n_out)]
+    got = port_rank.rank_emit_src(*args, out_cap)
+    for g, w in zip(got, _rank_oracle(*args, out_cap)):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
 def test_rank_emit_src_plain_matches_reference(ref):
     src, lit = port_rank.rank_emit_src(*ref["rank_inputs"], OUT_CAP)
     assert src.dtype == lit.dtype == torch.int32
