@@ -11,7 +11,8 @@ Phases, each of which raises on failure (exit code != 0):
    one nvcc per source, all at once, for sm_90a, and the host token
    decoder (``libflate_tpu_torch/native``) with g++; print the sort
    matcher's and the parse's registers, shared memory and resident
-   clusters / blocks at n = 65536, and the rank's and the pack's;
+   clusters / blocks at n = 65536, and the rank's, the pack's, the
+   histogram's and (at the shard's root bits) the sync decode's;
 3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
    a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
    gzip is the oracle; the host staging time is printed;
@@ -58,9 +59,10 @@ Phases, each of which raises on failure (exit code != 0):
 9. timing with CUDA events (kernels, plain versions, yardsticks, among
    them ``torch.searchsorted`` of every output position, the search half
    of the rank kernel only, which is printed beside it and is not its
-   ``library_ms``; the rank and pack kernels also launched alone, 48
-   back to back, on the same inputs and cycling through four copies of
-   them (more bytes than L2 holds), beside the pack's row memset; the
+   ``library_ms``; the sync decode, rank, histogram and pack kernels also
+   launched alone, 48 back to back, on the same inputs and cycling
+   through four copies of them (more bytes than L2 holds), beside the
+   pack's row memset, and the sync decode's time per token step; the
    sync, speculative and foreign decode chains, the chains of the three
    encode modes) and on the host clock (the end-to-end calls, host staging
    and the foreign path's host token decode split out), each with the
@@ -246,6 +248,8 @@ def main() -> None:
         f"[{card_line}]")
     log(f"rank.cu: {json.dumps(rank.kernel_info())} [{card_line}]")
     log(f"pack.cu: {json.dumps(pack.kernel_info())} [{card_line}]")
+    log(f"fields.cu token_hist: {json.dumps(hist.kernel_info())} "
+        f"[{card_line}]")
 
     # 3. decode input and oracle
     stream = FIXTURE.read_bytes() * COPIES
@@ -267,6 +271,9 @@ def main() -> None:
         raise AssertionError(f"expected one table group, got {len(groups)}")
     g = groups[0]
     bsz, cap = g["bsz"], g["member_cap"]
+    sd_info = sd.kernel_info(g["root_bits"])
+    log(f"sync_decode.cu at root_bits={g['root_bits']}: "
+        f"{json.dumps(sd_info)} [{card_line}]")
     sd_args = (g["words"], g["start_bits"], g["counts"], g["lit_t"],
                g["dist_t"], g["k_tok"], g["root_bits"])
     toks = sd.sync_decode(*sd_args)
@@ -695,12 +702,20 @@ def main() -> None:
     # width (a zero-width field's value is not needed), the starts, words
     live_sectors = int((widths.view(-1, 8) > 0).any(dim=1).sum())
     pack_bytes = nbytes(widths, cstarts, words) + 32 * live_sectors
+    # hist: every valid byte, the 32-byte sectors of a and of b that hold a
+    # valid slot (an invalid slot's a and b are not needed), the bins
+    v_flat = valid.reshape(-1).to(torch.uint8)
+    v_flat = torch.nn.functional.pad(v_flat, (0, (-v_flat.numel()) % 8))
+    hist_sectors = int(v_flat.view(-1, 8).any(dim=1).sum())
+    hist_bytes = nbytes(valid, bins) + 2 * 32 * hist_sectors
     log(f"data-dependent bounds: rank reads {int(rk_args[2].sum())} valid "
         f"of {rk_args[2].numel()} token slots, {rank_bytes} bytes "
         f"(every slot: {nbytes(*rk_args[:4], src, lit)}); pack reads "
         f"{live_sectors} of {values.numel() // 8} value sectors, "
         f"{pack_bytes} bytes (every value: "
-        f"{nbytes(values, widths, cstarts, words)})")
+        f"{nbytes(values, widths, cstarts, words)}); token_hist reads a and "
+        f"b in {hist_sectors} of {v_flat.numel() // 8} sectors, "
+        f"{hist_bytes} bytes (every slot: {nbytes(a, b, valid, bins)})")
     rows = [
         # name, source, replaces, kernel, plain, library, bytes, reps
         (kname(sd.sync_decode), "libflate_tpu_torch/csrc/sync_decode.cu",
@@ -744,7 +759,7 @@ def main() -> None:
          lambda: hist.token_hist(a, b, valid),
          lambda: hist.token_hist_plain(a, b, valid),
          lambda: torch.bincount(sym, minlength=hist.BINS),
-         nbytes(a, b, valid, bins), 20, 3),
+         hist_bytes, 20, 3),
         (kname(fields.token_fields), "libflate_tpu_torch/csrc/fields.cu",
          "libflate_tpu/ops/pallas_fields.py:120",
          lambda: fields.token_fields(a_h, b, tables),
@@ -835,14 +850,31 @@ def main() -> None:
         f"rank_emit_src {rnk['ms']:.4f} ms, bound {rnk['bound_ms']:.4f} "
         f"[{card_line}]")
     del rk_sent, rk_pos
-    # the two kernels redesigned last, launched alone back to back (outputs
-    # allocated once; the pack's rows zeroed once, which its plain stores
-    # and atomicOr then leave as they are), beside the pack's row memset:
+    # the sync decode, histogram, rank and pack kernels launched alone back
+    # to back (outputs allocated once; the pack's rows zeroed once, which its
+    # plain stores and atomicOr then leave as they are; the histogram's
+    # state stays zero between launches), beside the pack's row memset:
     # on the same inputs each time (warm: part of them stays in the 50 MB
     # L2), and cycling through COLD_COPIES copies of the inputs (cold: a
     # launch's inputs were last read three launches and > 300 MB before)
     src_a, lit_a = torch.empty_like(src), torch.empty_like(lit)
     words_a = torch.zeros_like(words)
+    toks_a, bins_a = torch.empty_like(toks), torch.empty_like(bins)
+    sd_rows = torch.from_numpy(sd.ROWS).to(dev)
+    hist_state = hist.kernel_state()
+
+    def sync_alone(w_, sb_, cnt_):
+        return lambda: _build.launch(
+            "lf_sync_decode", w_.data_ptr(), w_.numel(), sb_.data_ptr(),
+            cnt_.data_ptr(), g["lit_t"].data_ptr(), g["dist_t"].data_ptr(),
+            sd_rows.data_ptr(), g["root_bits"], toks_a.data_ptr(),
+            sb_.numel(), g["k_tok"])
+
+    def hist_alone(a_, b_, v_):
+        return lambda: _build.launch(
+            "lf_token_hist", a_.data_ptr(), b_.data_ptr(),
+            v_.view(torch.uint8).data_ptr(), a_.numel(), bins_a.data_ptr(),
+            hist_state.data_ptr())
 
     def rank_alone(st_, pk_, va_, no_):
         return lambda: _build.launch(
@@ -859,7 +891,14 @@ def main() -> None:
     rk_copies = [[x.clone() for x in rk_args[:4]] for _ in range(COLD_COPIES)]
     pk_copies = [[x.clone() for x in (values, widths, cstarts)]
                  for _ in range(COLD_COPIES)]
+    sd_copies = [[x.clone() for x in sd_args[:3]] for _ in range(COLD_COPIES)]
+    hs_copies = [[x.clone() for x in (a, b, valid)]
+                 for _ in range(COLD_COPIES)]
     alone = {
+        "sync_decode warm": [sync_alone(*sd_args[:3])],
+        "sync_decode cold": [sync_alone(*c) for c in sd_copies],
+        "token_hist warm": [hist_alone(a, b, valid)],
+        "token_hist cold": [hist_alone(*c) for c in hs_copies],
         "rank_emit_src warm": [rank_alone(*rk_args[:4])],
         "rank_emit_src cold": [rank_alone(*c) for c in rk_copies],
         "pack_stitch warm": [pack_alone(values, widths, cstarts)],
@@ -870,12 +909,43 @@ def main() -> None:
                 for k, fns in alone.items()}
     torch.cuda.synchronize()
     if not (torch.equal(src_a, src) and torch.equal(lit_a, lit)
-            and torch.equal(words_a, words)):
+            and torch.equal(words_a, words) and torch.equal(toks_a, toks)
+            and torch.equal(bins_a, bins)):
         raise AssertionError("a kernel launched alone gave other outputs")
     log(f"launched alone, {12 * COLD_COPIES} back to back, ms per launch: "
         + ", ".join(f"{k} {v:.4f}" for k, v in alone_ms.items())
         + f" [{card_line}]")
-    del src_a, lit_a, words_a, rk_copies, pk_copies
+    del src_a, lit_a, words_a, rk_copies, pk_copies, toks_a, sd_copies
+    del hs_copies
+    sdr = row[kname(sd.sync_decode)]
+    k_tok = g["k_tok"]
+
+    def sync_step_ns(n_slots: int) -> float:
+        """ns a step of the first ``n_slots`` slots, launched alone at K
+        and at K / 4: the difference over 3K / 4 steps drops the fixed
+        cost (launch, table build, last flush)."""
+        ms = []
+        for k_ in (k_tok, k_tok // 4):
+            o_ = torch.empty((n_slots, k_), dtype=torch.int32, device=dev)
+            w_, sb_, cnt_ = sd_args[:3]
+            ms.append(cuda_ms_many([lambda: _build.launch(
+                "lf_sync_decode", w_.data_ptr(), w_.numel(), sb_.data_ptr(),
+                cnt_.data_ptr(), g["lit_t"].data_ptr(),
+                g["dist_t"].data_ptr(), sd_rows.data_ptr(), g["root_bits"],
+                o_.data_ptr(), n_slots, k_)], 24))
+        return (ms[0] - ms[1]) / (k_tok - k_tok // 4) * 1e6
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_sd, sd_block = toks.shape[0], sd_info["threads"]
+    log(f"sync_decode per token step (K = {k_tok}, {n_sd} slots in "
+        f"lockstep): row {sdr['ms'] / k_tok * 1e6:.1f} ns, alone warm "
+        f"{alone_ms['sync_decode warm'] / k_tok * 1e6:.1f} ns, alone cold "
+        f"{alone_ms['sync_decode cold'] / k_tok * 1e6:.1f} ns; bound "
+        f"{sdr['bound_ms']:.4f} ms; a step without the fixed cost (alone, K "
+        f"against K / 4): {sync_step_ns(n_sd):.1f} ns at the main path's "
+        f"{-(-n_sd // (sd_block * sms)) * sd_block // 32} warps a SM, "
+        f"{sync_step_ns(sd_block * sms):.1f} ns at {sd_block // 32} warps a "
+        f"SM ({sd_block * sms} slots) [{card_line}]")
     srt, scn = row[kname(sm.sort_keys)], row[kname(sm.scan_emit)]
     log(f"sort matcher: sort_keys {srt['ms']:.4f} ms against torch.sort("
         f"stable=True) {srt['library_ms']:.4f} ms (ratio "

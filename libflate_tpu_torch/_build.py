@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: "p" pointer or stream (c_void_p), "i" int, "q" int64
 _SIGNATURES = {
     "lf_sync_decode": "pqpppppipiip",
+    "lf_sync_info": "ip",
     "lf_rank_emit_src": "ppppppiiip",
     "lf_rank_info": "p",
     "lf_resolve_bytes": "pppiip",
@@ -37,7 +38,8 @@ _SIGNATURES = {
     "lf_chunk_exits": "ppiip",
     "lf_walk_emit": "pppppiiip",
     "lf_parse_info": "ip",
-    "lf_token_hist": "pppqpp",
+    "lf_token_hist": "pppqppp",
+    "lf_hist_info": "p",
     "lf_token_fields": "pppqppppp",
     "lf_pack_stitch": "ppppiiip",
     "lf_pack_info": "p",
@@ -135,13 +137,20 @@ def load(verbose: bool = False):
         return _lib
 
 
+def current_stream() -> int:
+    """The current CUDA stream of the current device, as a raw pointer
+    (``torch.cuda.current_stream().cuda_stream`` without building a
+    Stream object, which costs ~8 us of host time a launch)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` on the current CUDA stream; the stream
     is appended as the last argument.  Raises if the launch failed."""
-    import torch
     fn = _fns.get(name)
     if fn is None:
         fn = _fns[name] = getattr(load(), name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, current_stream())
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -5,11 +5,14 @@ and its ``_hist_kernel``).
 The shared-table encode needs only the litlen and distance symbol counts
 summed over the whole batch.  :func:`token_hist` (``csrc/fields.cu``)
 counts the padded token slots into 320 bins — 0..285 litlen, 288 + dist
-symbol — and :func:`shared_histograms` adds one END_OF_BLOCK per member
-(padding members included) and the dummy distance code of a batch
-without any match.
+symbol — in one launch, and :func:`shared_histograms` adds one
+END_OF_BLOCK per member (padding members included) and the dummy distance
+code of a batch without any match.  :func:`kernel_info` gives how the
+kernel compiled.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -18,6 +21,33 @@ from ..spec import constants as C
 
 BINS = 320
 DIST_BIN0 = 288
+#: (device index, raw stream) -> the kernel's accumulator bins and
+#: ticket, zero whenever no launch on that stream is running
+_STATE: dict = {}
+
+
+def kernel_info() -> dict:
+    """The kernel as compiled: registers, static shared, spill and
+    dynamic shared bytes, resident blocks per SM, threads per block and
+    sub-histograms (one a warp) per block."""
+    out = (ctypes.c_int * 7)()
+    err = _build.load().lf_hist_info(out)
+    if err != 0:
+        raise RuntimeError(f"lf_hist_info failed with error {err}")
+    return dict(zip(("regs", "static_smem", "spill_bytes", "dynamic_smem",
+                     "blocks_per_sm", "threads", "sub_histograms"), out))
+
+
+def kernel_state() -> torch.Tensor:
+    """The (BINS + 1,) int32 state shared by the kernel's launches on the
+    current stream: allocated zero once, and every launch leaves it
+    zero."""
+    key = (torch.cuda.current_device(), _build.current_stream())
+    state = _STATE.get(key)
+    if state is None:
+        state = _STATE[key] = torch.zeros((BINS + 1,), dtype=torch.int32,
+                                          device=torch.device("cuda", key[0]))
+    return state
 
 
 def length_symbol(length: torch.Tensor) -> torch.Tensor:
@@ -51,7 +81,8 @@ def token_hist(a: torch.Tensor, b: torch.Tensor,
 
     a: literal byte or match length; b: distance (0 for a literal);
     valid: bool slot mask.  CPU tensors run :func:`token_hist_plain`;
-    CUDA tensors run the kernel.
+    CUDA tensors launch the kernel once (int32 / bool contiguous inputs
+    are passed as they are; ``valid`` as its bytes).
     """
     if b.shape != a.shape or valid.shape != a.shape:
         raise ValueError("token_hist: bad argument shapes")
@@ -59,11 +90,16 @@ def token_hist(a: torch.Tensor, b: torch.Tensor,
         return token_hist_plain(a, b, valid)
     if a.device.type != "cuda":
         raise ValueError(f"token_hist: unsupported device {a.device}")
-    a32, b32 = (t.to(torch.int32).contiguous() for t in (a, b))
-    v8 = valid.to(torch.uint8).contiguous()
+    a32, b32 = (t if t.dtype == torch.int32 and t.is_contiguous()
+                else t.to(torch.int32).contiguous() for t in (a, b))
+    v8 = (valid if valid.dtype == torch.bool and valid.is_contiguous()
+          else valid.to(torch.bool).contiguous()).view(torch.uint8)
+    if b32.device != a32.device or v8.device != a32.device:
+        raise ValueError("token_hist: tensors on different devices")
     bins = torch.empty((BINS,), dtype=torch.int32, device=a.device)
     _build.launch("lf_token_hist", a32.data_ptr(), b32.data_ptr(),
-                  v8.data_ptr(), a32.numel(), bins.data_ptr())
+                  v8.data_ptr(), a32.numel(), bins.data_ptr(),
+                  kernel_state().data_ptr())
     token_hist.launches += 1
     return bins
 

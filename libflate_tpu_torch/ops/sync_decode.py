@@ -12,8 +12,15 @@ slot carries its absolute start bit, which the CUDA kernel
 Output is slot-major ``(n_slots, K)`` int32, so a member that owns slots
 ``[j*max_nc, (j+1)*max_nc)`` owns one contiguous token row: the
 reference's transpose-reorder is a view here.
+
+The kernel merges the litlen and distance roots with the length and
+distance rows into one word per entry before it decodes;
+:func:`kernel_tables` builds the same words, and :func:`kernel_info`
+gives how the kernel compiled.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -25,6 +32,52 @@ from .tables import DIST_BASE, DIST_EXTRA, DIST_ROOT_BITS, LEN_BASE, \
 SYNC_TOKENS = 256                 # K: tokens per sync chunk (encoder side)
 #: length base/extra then distance base/extra, as the kernel reads them
 ROWS = np.concatenate([LEN_BASE, LEN_EXTRA, DIST_BASE, DIST_EXTRA])
+_ROWS_ON: dict = {}                 # device -> ROWS uploaded once
+
+
+def kernel_info(root_bits: int = 10) -> dict:
+    """The kernel as compiled: registers, static shared, spill and
+    dynamic shared bytes (the merged litlen root at ``root_bits``),
+    resident blocks per SM at that size and threads per block."""
+    out = (ctypes.c_int * 6)()
+    err = _build.load().lf_sync_info(root_bits, out)
+    if err != 0:
+        raise RuntimeError(f"lf_sync_info failed with error {err}")
+    return dict(zip(("regs", "static_smem", "spill_bytes", "dynamic_smem",
+                     "blocks_per_sm", "threads"), out))
+
+
+def kernel_tables(lit_table: torch.Tensor, dist_table: torch.Tensor):
+    """The merged tables the kernel builds in shared memory, as int32.
+
+    Litlen entry: width (bits 0-3) | extra count (4-6) | base (7-15) |
+    is-length (16); a literal's base is its byte and its extra count 0.
+    Distance entry: width (0-3) | extra count (4-7) | base (8-22).  The
+    symbols are clamped as :func:`sync_decode_plain` clamps them, so an
+    invalid entry (width 0) is literal 0 and symbols 286 / 287 are length
+    code 28.
+    """
+    dev = lit_table.device
+    lb, le, db, de = (torch.from_numpy(r).to(dev, torch.int64)
+                      for r in (LEN_BASE, LEN_EXTRA, DIST_BASE, DIST_EXTRA))
+    e = lit_table.to(torch.int64)
+    sym = e >> 4
+    is_len = sym > 256
+    li = (sym - 257).clamp(0, 28)
+    nx = torch.where(is_len, le[li], 0)
+    base = torch.where(is_len, lb[li], sym.clamp(min=0))
+    lit = (e & 15) | nx << 4 | base << 7 | is_len.to(torch.int64) << 16
+    d = dist_table.to(torch.int64)
+    dsym = (d >> 4).clamp(0, 29)
+    dist = (d & 15) | de[dsym] << 4 | db[dsym] << 8
+    return lit.to(torch.int32), dist.to(torch.int32)
+
+
+def _rows(device: torch.device) -> torch.Tensor:
+    rows = _ROWS_ON.get(device)
+    if rows is None:
+        rows = _ROWS_ON[device] = torch.from_numpy(ROWS).to(device)
+    return rows
 
 
 def stream_words(data: bytes, device) -> torch.Tensor:
@@ -107,7 +160,7 @@ def sync_decode(words: torch.Tensor, start_bits: torch.Tensor,
 
     Returns (S, k_tokens) int32: token i of slot s at ``out[s, i]``,
     packed ``a | b << 9``; entries past a slot's count are 0.  CPU tensors
-    run :func:`sync_decode_plain`; CUDA tensors run the kernel.
+    run :func:`sync_decode_plain`; CUDA tensors launch the kernel once.
     """
     s = start_bits.numel()
     if not 7 <= root_bits <= ROOT_BITS:
@@ -125,11 +178,14 @@ def sync_decode(words: torch.Tensor, start_bits: torch.Tensor,
     args = [t.contiguous() for t in (words, start_bits, counts,
                                      lit_table.to(torch.int32),
                                      dist_table.to(torch.int32))]
-    rows = torch.from_numpy(ROWS).to(words.device)
+    rows = _rows(words.device)
     out = torch.empty((s, k_tokens), dtype=torch.int32, device=words.device)
     if any(t.device != words.device for t in args):
         raise ValueError("sync_decode: tensors on different devices")
     w, sb, cnt, lit, dist = args
+    # the kernel loads aligned 16-byte quads, at least one whole
+    if w.data_ptr() % 16 or w.numel() < 4:
+        w = torch.nn.functional.pad(w, (0, max(4 - w.numel(), 0)))
     _build.launch("lf_sync_decode", w.data_ptr(), w.numel(), sb.data_ptr(),
                   cnt.data_ptr(), lit.data_ptr(), dist.data_ptr(),
                   rows.data_ptr(), root_bits, out.data_ptr(), s, k_tokens)

@@ -83,6 +83,72 @@ def test_sync_decode_kernel_reads_zero_past_the_stream(dev):
                                sd.sync_decode_plain(*args), rtol=0, atol=0)
 
 
+def _sync_random_case(dev, k: int, root_bits: int, seed: int = 0):
+    """Random stream words and seeded tables (invalid entries, symbols
+    286 / 287 and above, negative words), 1003 slots (not a multiple of
+    the block) starting at every residue mod 32, some within 6 bytes of
+    the stream's end or past it, with counts of 0, of K and above K."""
+    rng = np.random.default_rng(seed + 1000 * k + root_bits)
+    n_words, s = 4000, 1003
+    words = rng.integers(-2**31, 2**31, n_words).astype(np.int32)
+    start = rng.integers(0, n_words * 32, s) // 32 * 32 + np.arange(s) % 32
+    end = n_words * 32
+    start[-40:] = end - rng.integers(0, 48, 40)          # last 6 bytes
+    start[-3:] = [end, end + 5, end + 100]               # past the end
+    counts = rng.integers(0, k + 1, s)
+    counts[::7] = 0
+    counts[1::7] = k + rng.integers(1, 9, len(counts[1::7]))
+    counts[2::7] = k
+    n = 1 << root_bits
+    sym = rng.integers(0, 288, n)
+    sym[rng.random(n) < 0.1] = rng.choice([286, 287, 300, 4000], 1)[0]
+    lit = sym << 4 | rng.integers(1, 16, n)
+    lit[rng.random(n) < 0.05] = 0
+    lit[rng.random(n) < 0.02] = -rng.integers(1, 2**31)
+    dist = rng.integers(0, 32, 256) << 4 | rng.integers(0, 16, 256)
+    dist[:3] = [0, -17, 29 << 4]
+    t = [torch.from_numpy(x).to(dev) for x in (
+        words, start.astype(np.int64), counts.astype(np.int32),
+        lit.astype(np.int32), dist.astype(np.int32))]
+    return (*t, k, root_bits)
+
+
+@pytest.mark.parametrize("root_bits", [7, 10, 12])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 256])
+def test_sync_decode_kernel_random_streams_match_plain(dev, k, root_bits):
+    args = _sync_random_case(dev, k, root_bits)
+    got = sd.sync_decode(*args)
+    assert got.shape == (1003, k)
+    _eq(got, sd.sync_decode_plain(*args))
+    assert (got != 0).any() and (got[::7] == 0).all()
+
+
+def test_sync_decode_kernel_main_path_shape(dev):
+    """The chip_smoke shard: 1024 members x 65 slots = 66,560 slots."""
+    stream = (DATA / "pgzf_sync_zipf_2m.pgz").read_bytes() * 32
+    (g,) = pgzf._prepare_sync_device(stream, dev)
+    args = _sd_args(g)
+    assert g["start_bits"].numel() == 66560 and g["k_tok"] == 256
+    _eq(sd.sync_decode(*args), sd.sync_decode_plain(*args))
+
+
+def test_sync_decode_and_hist_kernel_info(dev):
+    """Both kernels compile without spills and report their geometry:
+    two-warp sync blocks, the main path's 66,560 slots all resident at
+    once at every root; one sub-histogram a warp."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rb in (7, 10, 12):
+        info = sd.kernel_info(rb)
+        assert info["spill_bytes"] == 0 and info["threads"] == 64
+        assert info["dynamic_smem"] == 4 << rb
+        assert info["blocks_per_sm"] * sms * 64 >= 66560
+    h = hist.kernel_info()
+    assert h["spill_bytes"] == 0 and h["blocks_per_sm"] >= 1
+    assert h["dynamic_smem"] == 0 and h["threads"] % 32 == 0
+    assert h["sub_histograms"] == h["threads"] // 32
+    assert h["static_smem"] >= 4 * 320 * h["sub_histograms"]
+
+
 def test_rank_and_resolve_kernels_match_plain(group):
     toks = sd.sync_decode(*_sd_args(group))
     cap = group["member_cap"]
@@ -535,6 +601,57 @@ def test_hist_fields_pack_kernels_match_plain(enc_batch):
     w_out = (int(bits.max()) + 31) // 32 + 1
     _eq(pack.pack_stitch(values, widths, starts[:, :-1], w_out),
         pack.pack_stitch_plain(values, widths, starts[:, :-1], w_out))
+
+
+def _hist_case(dev, kind: str, n: int):
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, 256, n)
+    b = np.where(rng.random(n) < 0.3, rng.integers(1, 32769, n), 0)
+    a = np.where(b > 0, rng.integers(3, 259, n), a)
+    valid = rng.random(n) < 0.9
+    if kind == "one_literal":                  # every slot in bin 101
+        a, b, valid = np.full(n, 101), np.zeros(n), np.ones(n, bool)
+    elif kind == "one_match":                  # two bins, every slot
+        a, b, valid = np.full(n, 258), np.full(n, 1), np.ones(n, bool)
+    elif kind == "invalid":
+        valid[:] = False
+    elif kind == "runs":                       # live prefixes, then holes
+        valid = np.arange(n) % 64 < 20
+    elif kind == "out_of_range":
+        a = rng.integers(-2**31, 2**31, n)
+        b = np.where(rng.random(n) < 0.5, 0, rng.integers(-2**31, 2**31, n))
+        b[::5] = rng.integers(32769, 2**31, len(b[::5]))
+        a[1::5] = rng.integers(-600, 600, len(a[1::5]))
+    return [torch.from_numpy(x).to(dev) for x in (
+        a.astype(np.int32), b.astype(np.int32), valid)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 4097, 128 * 49152 + 5])
+@pytest.mark.parametrize("kind", ["mixed", "one_literal", "one_match",
+                                  "invalid", "runs", "out_of_range"])
+def test_hist_kernel_hard_cases_match_plain(dev, kind, n):
+    """Contention on one bin, no valid slot, valid slots in runs (whole
+    groups of four invalid ones skip a and b), a and b outside the
+    encoder's range, sizes not a multiple of 4 slots; two calls in a row
+    give the same bins (the kernel leaves its state zero)."""
+    a, b, valid = _hist_case(dev, kind, n)
+    first = hist.token_hist(a, b, valid)
+    _eq(first, hist.token_hist_plain(a, b, valid))
+    _eq(hist.token_hist(a, b, valid), first)
+    if kind == "invalid":
+        assert int(first.sum()) == 0
+
+
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 2, 0), (0, 0, 3),
+                                     (3, 1, 2), (4, 4, 4)])
+def test_hist_kernel_unaligned_views_match_plain(dev, offsets):
+    """a, b and valid as views whose data pointers are off 16 (4 for
+    valid) bytes: the scalar path; offsets of 4 slots keep the vector
+    path with a ragged tail."""
+    n = 100_003
+    a, b, valid = _hist_case(dev, "mixed", n + 4)
+    views = [t[o:o + n] for t, o in zip((a, b, valid), offsets)]
+    _eq(hist.token_hist(*views), hist.token_hist_plain(*views))
 
 
 def _pack_widths(kind: str, bsz: int, f: int, g) -> torch.Tensor:

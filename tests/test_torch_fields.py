@@ -3,7 +3,8 @@ reference.
 
 * ``shared_histograms_pallas`` (Pallas interpret mode, once per module)
   at 128 x 2048 token slots: the batch-global litlen/distance counts,
-  END_OF_BLOCK per member and the dummy-distance rule.
+  END_OF_BLOCK per member and the dummy-distance rule, also with slots
+  whose a and b lie outside what the encoder emits.
 * The token fields against the reference's XLA twin ``token_fields_xla``
   called as ``_shared_tokens_xla`` calls it (``token_fields_pallas``
   passes no interpret flag, so it cannot run on the CPU), hole slots
@@ -41,9 +42,29 @@ def _tokens(seed: int, matches: bool = True):
     return a.astype(np.int32), b.astype(np.int32), valid
 
 
+def _out_of_range(seed: int):
+    """``_tokens`` plus slots outside the encoder's range on which the
+    reference and the port agree: invalid slots carrying any a and b,
+    literals in [288, 512) and [-224, 0) (neither counts them), and
+    negative b (a literal).  Valid matches with a outside [3, 258] or b
+    above 32768, and literals outside [-224, 512), differ: see
+    ``test_token_hist_clamps_what_the_encoder_never_emits``."""
+    a, b, valid = _tokens(seed)
+    rng = np.random.default_rng(seed)
+    junk = rng.random((B, M)) < 0.1
+    valid[junk] = False
+    a[junk] = rng.integers(-2**31, 2**31 - 1, int(junk.sum()))
+    b[junk] = rng.integers(-2**31, 2**31 - 1, int(junk.sum()))
+    lit = ~junk & (rng.random((B, M)) < 0.1)
+    valid[lit] = True
+    a[lit] = rng.choice([288, 300, 511, -1, -100, -224], int(lit.sum()))
+    b[lit] = rng.choice([0, -1, -40000], int(lit.sum()))
+    return a, b, valid
+
+
 @pytest.fixture(scope="module")
 def ref_hist():
-    cases = [_tokens(1), _tokens(2, matches=False)]
+    cases = [_tokens(1), _tokens(2, matches=False), _out_of_range(4)]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("LIBFLATE_PALLAS_INTERPRET", "1")
         from libflate_tpu.ops.pallas_hist import shared_histograms_pallas
@@ -52,7 +73,7 @@ def ref_hist():
     return cases, out
 
 
-@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("which", [0, 1, 2])
 def test_shared_histograms_match_reference(ref_hist, which):
     cases, out = ref_hist
     t = convert.from_reference_batch(dict(zip("a b valid".split(),
@@ -62,6 +83,22 @@ def test_shared_histograms_match_reference(ref_hist, which):
     np.testing.assert_array_equal(dist.numpy(), out[which][1])
     if which == 1:                            # no match: the dummy code
         assert dist.tolist() == [1] + [0] * 29
+
+
+def test_token_hist_clamps_what_the_encoder_never_emits():
+    """A valid match clamps its length to [3, 258] and its distance to
+    32768; a literal outside [0, 288) does not count.  The reference
+    (``shared_histograms_pallas``) runs its arithmetic off the tables
+    there instead (length 600 -> symbol 283, distance 40000 -> 28,
+    literal 600 -> bin 88), for inputs no encoder path produces."""
+    a = torch.tensor([600, 1, -5, 10, 600, -300, 7], dtype=torch.int32)
+    b = torch.tensor([5, 5, 9, 40000, 0, 0, -3], dtype=torch.int32)
+    bins = hist.token_hist(a, b, torch.ones(7, dtype=torch.bool))
+    want = torch.zeros(hist.BINS, dtype=torch.int32)
+    for sym in (285, 4 + 288, 257, 4 + 288, 257, 6 + 288, 264, 29 + 288,
+                7):
+        want[sym] += 1
+    torch.testing.assert_close(bins, want, rtol=0, atol=0)
 
 
 def test_symbol_arithmetic_matches_the_tables():

@@ -120,3 +120,89 @@ def test_wrapper_rejects_bad_arguments():
         sd.sync_decode(w, sb, cnt, lit, dist, root_bits=13)
     with pytest.raises(ValueError):
         sd.sync_decode(w.to("meta"), sb, cnt, lit, dist)
+
+
+def _merged_decode(words, start_bits, counts, lit_table, dist_table,
+                   k_tokens, root_bits):
+    """The kernel's step in torch: two lookups in :func:`kernel_tables`'
+    merged words, the extra bits from the low window word and from the
+    32 bits at the distance code, as ``csrc/sync_decode.cu`` takes them."""
+    lit_m, dist_m = (t.to(torch.int64)
+                     for t in sd.kernel_tables(lit_table, dist_table))
+    bytes_ = words.view(torch.uint8)
+    cursor = start_bits.clone()
+    cnt = counts.to(torch.int64)
+    out = torch.zeros((cursor.numel(), k_tokens), dtype=torch.int32)
+    for i in range(k_tokens):
+        win = sd._window(bytes_, cursor)
+        lo = win & 0xFFFFFFFF
+        e = lit_m[lo & ((1 << root_bits) - 1)]
+        width, nx = e & 15, (e >> 4) & 7
+        a = ((e >> 7) & 511) + ((lo >> width) & ((1 << nx) - 1))
+        k2 = width + nx
+        d = (win >> k2) & 0xFFFFFFFF
+        de = dist_m[d & 255]
+        dw, dnx = de & 15, (de >> 4) & 15
+        b = (de >> 8) + ((d >> dw) & ((1 << dnx) - 1))
+        is_len = (e >> 16) != 0
+        tok = a | torch.where(is_len, b, 0) << 9
+        active = i < cnt
+        out[:, i] = torch.where(active, tok, 0).to(torch.int32)
+        cursor += torch.where(active, torch.where(is_len, k2 + dw + dnx,
+                                                  width), 0)
+    return out
+
+
+def _random_tables(seed: int, root_bits: int):
+    """Seeded litlen / distance roots: valid-looking entries, invalid ones
+    (width 0), symbols 286 / 287 and above, negative words."""
+    rng = np.random.default_rng(seed)
+    n = 1 << root_bits
+    sym = rng.integers(0, 288, n)
+    sym[rng.random(n) < 0.1] = rng.choice([286, 287, 300, 4000], 1)[0]
+    lit = (sym << 4 | rng.integers(1, 16, n)).astype(np.int64)
+    lit[rng.random(n) < 0.05] = 0
+    lit[rng.random(n) < 0.02] = rng.integers(-2**31, 0)
+    dist = (rng.integers(0, 32, 256) << 4 | rng.integers(0, 16, 256))
+    dist[:3] = [0, -17, 29 << 4]
+    return (torch.from_numpy(lit.astype(np.int32)),
+            torch.from_numpy(dist.astype(np.int32)))
+
+
+@pytest.mark.parametrize("case", ["fixture", "invalid", "root12", "random"])
+def test_merged_tables_decode_as_plain(ref, case):
+    """Decoding through the kernel's merged tables gives exactly
+    sync_decode_plain's tokens (held against the reference above)."""
+    prep, want, bad, _ = ref
+    g = convert.from_reference_group(prep)
+    lit, dist, rb = g["lit_t"], g["dist_t"], g["root_bits"]
+    if case == "invalid":
+        lit = torch.from_numpy(bad)
+    elif case == "root12":
+        lit, rb = lit.repeat(1 << (12 - rb)), 12
+    elif case == "random":
+        lit, dist = _random_tables(7, rb)
+    args = (g["words"], g["start_bits"], g["counts"], lit, dist,
+            g["k_tok"], rb)
+    plain = sd.sync_decode_plain(*args).numpy()
+    if case in ("fixture", "root12"):
+        np.testing.assert_array_equal(plain, want)
+    np.testing.assert_array_equal(_merged_decode(*args).numpy(), plain)
+
+
+def test_kernel_tables_fields():
+    lit = torch.tensor([0, 65 << 4 | 8, 256 << 4 | 7, 257 << 4 | 7,
+                        285 << 4 | 8, 286 << 4 | 9, 287 << 4 | 9, -1],
+                       dtype=torch.int32)
+    dist = torch.tensor([0, 4 << 4 | 5, 29 << 4 | 5, 31 << 4 | 5, -17],
+                        dtype=torch.int32)
+    lit_m, dist_m = sd.kernel_tables(lit, dist)
+    # (width, extra count, base, is-length) of each merged litlen word
+    got = [(int(e) & 15, int(e) >> 4 & 7, int(e) >> 7 & 511, int(e) >> 16)
+           for e in lit_m]
+    assert got == [(0, 0, 0, 0), (8, 0, 65, 0), (7, 0, 256, 0),
+                   (7, 0, 3, 1), (8, 0, 258, 1), (9, 0, 258, 1),
+                   (9, 0, 258, 1), (15, 0, 0, 0)]
+    got = [(int(e) & 15, int(e) >> 4 & 15, int(e) >> 8) for e in dist_m]
+    assert got == [(0, 0, 1), (5, 1, 5), (5, 13, 24577), (5, 13, 24577),
+                   (15, 0, 1)]
