@@ -12,7 +12,8 @@ Phases, each of which raises on failure (exit code != 0):
    decoder (``libflate_tpu_torch/native``) with g++; print the sort
    matcher's and the parse's registers, shared memory and resident
    clusters / blocks at n = 65536, and the rank's, the pack's, the
-   histogram's and (at the shard's root bits) the sync decode's;
+   histogram's, the resolve's, the hash matcher's (at n = 65536) and (at
+   the shard's root bits) the sync decode's;
 3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
    a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
    gzip is the oracle; the host staging time is printed;
@@ -59,10 +60,12 @@ Phases, each of which raises on failure (exit code != 0):
 9. timing with CUDA events (kernels, plain versions, yardsticks, among
    them ``torch.searchsorted`` of every output position, the search half
    of the rank kernel only, which is printed beside it and is not its
-   ``library_ms``; the sync decode, rank, histogram and pack kernels also
-   launched alone, 48 back to back, on the same inputs and cycling
-   through four copies of them (more bytes than L2 holds), beside the
-   pack's row memset, and the sync decode's time per token step; the
+   ``library_ms``; the sync decode, rank, resolve, histogram, pack and
+   hash kernels also launched alone, 48 back to back, on the same inputs
+   and cycling through four copies of them (more bytes than L2 holds),
+   the resolve also on the first 128 members (one stripped-decode group),
+   beside the pack's row memset, and the sync decode's time per token
+   step; the resolve's and the hash kernel's bounds and half marks; the
    sync, speculative and foreign decode chains, the chains of the three
    encode modes) and on the host clock (the end-to-end calls, host staging
    and the foreign path's host token decode split out), each with the
@@ -249,6 +252,9 @@ def main() -> None:
     log(f"rank.cu: {json.dumps(rank.kernel_info())} [{card_line}]")
     log(f"pack.cu: {json.dumps(pack.kernel_info())} [{card_line}]")
     log(f"fields.cu token_hist: {json.dumps(hist.kernel_info())} "
+        f"[{card_line}]")
+    log(f"resolve.cu: {json.dumps(expand.kernel_info())} [{card_line}]")
+    log(f"hash.cu at n=65536: {json.dumps(hm.kernel_info(65536))} "
         f"[{card_line}]")
 
     # 3. decode input and oracle
@@ -850,14 +856,18 @@ def main() -> None:
         f"rank_emit_src {rnk['ms']:.4f} ms, bound {rnk['bound_ms']:.4f} "
         f"[{card_line}]")
     del rk_sent, rk_pos
-    # the sync decode, histogram, rank and pack kernels launched alone back
-    # to back (outputs allocated once; the pack's rows zeroed once, which its
-    # plain stores and atomicOr then leave as they are; the histogram's
-    # state stays zero between launches), beside the pack's row memset:
-    # on the same inputs each time (warm: part of them stays in the 50 MB
-    # L2), and cycling through COLD_COPIES copies of the inputs (cold: a
-    # launch's inputs were last read three launches and > 300 MB before)
+    # the sync decode, histogram, rank, resolve, pack and hash kernels
+    # launched alone back to back (outputs allocated once; the pack's rows
+    # zeroed once, which its plain stores and atomicOr then leave as they
+    # are; the histogram's state stays zero between launches), beside the
+    # pack's row memset: on the same inputs each time (warm: part of them
+    # stays in the 50 MB L2), and cycling through COLD_COPIES copies of the
+    # inputs (cold: a launch's inputs were last read three launches and
+    # > 100 MB before); the resolve also on the first 128 members alone
     src_a, lit_a = torch.empty_like(src), torch.empty_like(lit)
+    out_a, hcand_a = torch.empty_like(out), torch.empty_like(hcand_raw)
+    n_grp = pgzf.DEV_BATCH
+    out_g_a = torch.empty_like(out[:n_grp])
     words_a = torch.zeros_like(words)
     toks_a, bins_a = torch.empty_like(toks), torch.empty_like(bins)
     sd_rows = torch.from_numpy(sd.ROWS).to(dev)
@@ -882,6 +892,16 @@ def main() -> None:
             pk_.data_ptr(), no_.data_ptr(), src_a.data_ptr(),
             lit_a.data_ptr(), bsz, st_.shape[1], cap)
 
+    def resolve_alone(s_, l_, o_):
+        return lambda: _build.launch(
+            "lf_resolve_bytes", s_.data_ptr(), l_.data_ptr(), o_.data_ptr(),
+            s_.shape[0], s_.shape[1])
+
+    def hash_alone(h_):
+        return lambda: _build.launch(
+            "lf_hash_candidates", h_.data_ptr(), hcand_a.data_ptr(),
+            h_.shape[0], h_.shape[1])
+
     def pack_alone(v_, w_, s_):
         return lambda: _build.launch(
             "lf_pack_stitch", v_.data_ptr(), w_.data_ptr(), s_.data_ptr(),
@@ -894,6 +914,10 @@ def main() -> None:
     sd_copies = [[x.clone() for x in sd_args[:3]] for _ in range(COLD_COPIES)]
     hs_copies = [[x.clone() for x in (a, b, valid)]
                  for _ in range(COLD_COPIES)]
+    rs_copies = [[x.clone() for x in (src, lit)] for _ in range(COLD_COPIES)]
+    rg_copies = [[x[:n_grp].clone() for x in (src, lit)]
+                 for _ in range(COLD_COPIES)]
+    hh_copies = [ids.clone() for _ in range(COLD_COPIES)]
     alone = {
         "sync_decode warm": [sync_alone(*sd_args[:3])],
         "sync_decode cold": [sync_alone(*c) for c in sd_copies],
@@ -901,6 +925,14 @@ def main() -> None:
         "token_hist cold": [hist_alone(*c) for c in hs_copies],
         "rank_emit_src warm": [rank_alone(*rk_args[:4])],
         "rank_emit_src cold": [rank_alone(*c) for c in rk_copies],
+        "resolve_bytes warm": [resolve_alone(src, lit, out_a)],
+        "resolve_bytes cold": [resolve_alone(*c, out_a) for c in rs_copies],
+        f"resolve_bytes {n_grp} members warm": [resolve_alone(
+            rg_copies[0][0], rg_copies[0][1], out_g_a)],
+        f"resolve_bytes {n_grp} members cold": [
+            resolve_alone(*c, out_g_a) for c in rg_copies],
+        "hash_candidates warm": [hash_alone(ids)],
+        "hash_candidates cold": [hash_alone(c) for c in hh_copies],
         "pack_stitch warm": [pack_alone(values, widths, cstarts)],
         "pack_stitch cold": [pack_alone(*c) for c in pk_copies],
         "pack rows memset": [lambda: torch.zeros_like(words)],
@@ -910,13 +942,49 @@ def main() -> None:
     torch.cuda.synchronize()
     if not (torch.equal(src_a, src) and torch.equal(lit_a, lit)
             and torch.equal(words_a, words) and torch.equal(toks_a, toks)
-            and torch.equal(bins_a, bins)):
+            and torch.equal(bins_a, bins) and torch.equal(out_a, out)
+            and torch.equal(out_g_a, out[:n_grp])
+            and torch.equal(hcand_a, hcand_raw)):
         raise AssertionError("a kernel launched alone gave other outputs")
     log(f"launched alone, {12 * COLD_COPIES} back to back, ms per launch: "
         + ", ".join(f"{k} {v:.4f}" for k, v in alone_ms.items())
         + f" [{card_line}]")
     del src_a, lit_a, words_a, rk_copies, pk_copies, toks_a, sd_copies
-    del hs_copies
+    del hs_copies, rs_copies, rg_copies, hh_copies, out_a, out_g_a, hcand_a
+    # the resolve and the hash kernel against their bounds (resolve: src
+    # and lit read, the bytes written, 9 bytes a position; hash: the ids
+    # read, the candidates written, 8 bytes a position; the hash kernel's
+    # scratch, a code word a position kept in `out` between its passes,
+    # written and read back once, is given apart) and half marks (twice
+    # the bound)
+    res_r, hsh_r = row[kname(expand.resolve_bytes)], row[kname(
+        hm.hash_candidates)]
+    grp_bound = nbytes(src[:n_grp], lit[:n_grp], out[:n_grp]) / \
+        HBM_BYTES_PER_MS
+
+    def mark(ms: float, bound: float) -> str:
+        return f"{ms:.4f} ms ({'met' if ms <= 2 * bound else 'missed'})"
+
+    log(f"resolve_bytes at {bsz} x {cap}: bound {res_r['bound_ms']:.4f} ms "
+        f"({nbytes(src, lit, out)} bytes), half mark "
+        f"{2 * res_r['bound_ms']:.4f} ms: row "
+        f"{mark(res_r['ms'], res_r['bound_ms'])}, alone warm "
+        f"{mark(alone_ms['resolve_bytes warm'], res_r['bound_ms'])}, cold "
+        f"{mark(alone_ms['resolve_bytes cold'], res_r['bound_ms'])}; at "
+        f"{n_grp} x {cap}: bound {grp_bound:.4f} ms, alone warm "
+        f"{mark(alone_ms[f'resolve_bytes {n_grp} members warm'], grp_bound)}"
+        f", cold "
+        f"{mark(alone_ms[f'resolve_bytes {n_grp} members cold'], grp_bound)}"
+        f" [{card_line}]")
+    log(f"hash_candidates at {tuple(ids.shape)}: bound "
+        f"{hsh_r['bound_ms']:.4f} ms ({nbytes(ids, hcand_raw)} bytes; "
+        f"scratch traffic apart: {2 * nbytes(hcand_raw)} bytes, the codes "
+        f"in out, {2 * nbytes(hcand_raw) / HBM_BYTES_PER_MS:.4f} ms if none "
+        f"stayed in L2), half mark {2 * hsh_r['bound_ms']:.4f} ms: row "
+        f"{mark(hsh_r['ms'], hsh_r['bound_ms'])}, alone warm "
+        f"{mark(alone_ms['hash_candidates warm'], hsh_r['bound_ms'])}, cold "
+        f"{mark(alone_ms['hash_candidates cold'], hsh_r['bound_ms'])} "
+        f"[{card_line}]")
     sdr = row[kname(sd.sync_decode)]
     k_tok = g["k_tok"]
 

@@ -32,6 +32,7 @@ _SIGNATURES = {
     "lf_rank_emit_src": "ppppppiiip",
     "lf_rank_info": "p",
     "lf_resolve_bytes": "pppiip",
+    "lf_resolve_info": "p",
     "lf_sort_keys": "pppiiiip",
     "lf_scan_emit": "pppppiiiiiiip",
     "lf_match_info": "iiip",
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "lf_match_lengths": "pppppiiiiip",
     "lf_gather_rows": "pppiiiip",
     "lf_hash_candidates": "ppiip",
+    "lf_hash_info": "ip",
     "lf_gather_two": "ppppppiiiip",
     "lf_spec_decode": "ppppppiip",
     "lf_spec_chunk_exits": "ppiip",

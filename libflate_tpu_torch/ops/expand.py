@@ -5,13 +5,29 @@ semantics of ``resolve_packed`` and its ``_resolve_kernel`` in the default
 
 The kernel (``csrc/resolve.cu``) writes one byte per position, so the
 reference's sublane-packed words and ``unpack_bytes`` have no
-counterpart, and any row length works.
+counterpart, and any row length works.  :func:`kernel_info` gives how the
+kernel compiled and its geometry.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import _build
+
+
+def kernel_info() -> dict:
+    """The kernel as compiled: registers, static shared, spill and
+    dynamic shared bytes, resident blocks per SM, positions a tile,
+    threads a block, tile stages in flight and bytes of the output ring."""
+    out = (ctypes.c_int * 9)()
+    err = _build.load().lf_resolve_info(out)
+    if err != 0:
+        raise RuntimeError(f"lf_resolve_info failed with error {err}")
+    return dict(zip(("regs", "static_smem", "spill_bytes", "dynamic_smem",
+                     "blocks_per_sm", "tile", "threads", "stages",
+                     "ring_bytes"), out))
 
 
 def resolve_bytes_plain(src: torch.Tensor, lit: torch.Tensor):

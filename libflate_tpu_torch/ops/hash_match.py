@@ -10,9 +10,13 @@ earlier position its bucket held (:func:`hash_candidates`, the kernel in
 ``csrc/hash.cu``, beside its plain version
 :func:`hash_candidates_plain`); the window mask ends it
 (:func:`prefix_candidates`).  The layout is member-major (B, n), where
-the reference's kernel takes (n, 128).
+the reference's kernel takes (n, 128).  The kernel walks a member's
+chunks in parallel (the table's writes depend on each step's ids alone);
+:func:`kernel_info` gives how it compiled and its chunks.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,6 +27,18 @@ B_BITS = 12
 FP_BITS = 14
 STEP = 8                   # positions per table step
 MAX_N = 1 << 17            # slots pack a position into 17 bits
+
+
+def kernel_info(n: int = 65536) -> dict:
+    """The kernel as compiled and at ``n`` positions a member: registers,
+    static shared, spill and dynamic shared bytes, resident blocks per
+    SM, warps a block and positions a warp's chunk."""
+    out = (ctypes.c_int * 7)()
+    err = _build.load().lf_hash_info(n, out)
+    if err != 0:
+        raise RuntimeError(f"lf_hash_info failed with error {err}")
+    return dict(zip(("regs", "static_smem", "spill_bytes", "dynamic_smem",
+                     "blocks_per_sm", "warps", "chunk"), out))
 
 
 def keys_hashes(blocks: torch.Tensor) -> torch.Tensor:

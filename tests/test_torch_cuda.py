@@ -325,6 +325,98 @@ def test_resolve_kernel_deep_chains(dev):
     assert out[0].tolist() == [1, 2, 3] * (n // 3) + [1, 2][:n % 3]
 
 
+def _resolve_rows(dev, bsz, n, seed, far=True):
+    """(src, lit): a tenth literals, the rest pointing back at most 2 KiB,
+    with pointers 32,768-33,100 back (the byte ring's edge) and, with
+    ``far``, 33,800-60,000 back (past it: global memory) mixed in."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.arange(n, device=dev)[None, :].expand(bsz, n)
+
+    def rnd(lo, hi):
+        return torch.randint(lo, hi, (bsz, n), generator=g, device=dev)
+
+    src = torch.where(rnd(0, 10) == 0, pos, (pos - rnd(1, 2048)).clamp(0))
+    for lo, hi, on in ((32768, 33101, True), (33800, 60000, far)):
+        back = pos - rnd(lo, hi)
+        if on:
+            src = torch.where((rnd(0, 8) == 0) & (back >= 0), back, src)
+    return src.int(), rnd(0, 1 << 20).int()
+
+
+def _resolve_eq(src, lit):
+    got = expand.resolve_bytes(src, lit)
+    assert got.is_cuda and got.shape == src.shape
+    _eq(got, expand.resolve_bytes_plain(src, lit))
+
+
+def test_resolve_kernel_info(dev):
+    """No spills; the byte ring holds a DEFLATE pointer's reach (32,768 +
+    257) before a tile; several members run on an SM at once."""
+    info = expand.kernel_info()
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 2
+    assert info["ring_bytes"] - info["tile"] >= 32768 + 257
+    assert info["ring_bytes"] % info["tile"] == 0 and info["stages"] >= 2
+    assert info["dynamic_smem"] == (info["stages"] * info["tile"] * 8
+                                    + info["ring_bytes"])
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 1023, 1024, 1025, 2047,
+                               3072, 4095, 4096, 4097, 5121, 8192, 34816,
+                               34817, 70000])
+def test_resolve_kernel_tile_and_stage_edges(dev, n):
+    """Row lengths below, at and across a tile, the stage ring and the
+    byte ring (aligned rows take 16-byte copies and stores, others 4-byte
+    copies and byte stores), with forward and negative pointers."""
+    src, lit = _resolve_rows(dev, 3, n, n)
+    src[1, 5::41] += 3
+    src[2, 9::37] = -1 - src[2, 9::37]
+    _resolve_eq(src, lit)
+
+
+@pytest.mark.parametrize("n", [65536, 70000])
+def test_resolve_kernel_corrupt_pointers_in_first_and_last_tile(dev, n):
+    src, lit = _resolve_rows(dev, 2, n, 7)
+    for t0 in (0, (n - 1) // 1024 * 1024):
+        src[0, t0 + 3:t0 + 900:7] = n + 5                       # forward
+        src[0, t0 + 5:t0 + 900:11] -= n                          # negative
+        idx = torch.arange(t0 + 1, min(t0 + 900, n), 5, device=dev)
+        src[1, idx] = (idx + 1).clamp(max=n - 1).int()          # p + 1
+    _resolve_eq(src, lit)
+
+
+@pytest.mark.parametrize("back", [1, 1000, 1024, 1025, 32768, 33025, 40000])
+def test_resolve_kernel_chains_through_every_tile(dev, back):
+    """Every position copies the one ``back`` before it: chains from the
+    last tile down to the first, inside the tile (back 1), across one or
+    two tiles, at the ring's reach and past it."""
+    n = 65536
+    p = torch.arange(n, dtype=torch.int32, device=dev)
+    src = torch.where(p < back, p, p - back)[None, :]
+    lit = (p * 7 + 3)[None, :]
+    _resolve_eq(src, lit)
+
+
+def test_resolve_kernel_unaligned_tensors(dev):
+    """Rows that start off a 16-byte boundary take the 4-byte copies."""
+    bsz, n = 2, 8192
+    src, lit = _resolve_rows(dev, bsz, n, 11)
+    flat = torch.empty(2 * bsz * n + 1, dtype=torch.int32, device=dev)
+    s2 = flat[1:bsz * n + 1].view(bsz, n)
+    l2 = flat[bsz * n + 1:].view(bsz, n)
+    s2.copy_(src)
+    l2.copy_(lit)
+    assert s2.is_contiguous() and s2.data_ptr() % 16 != 0
+    _resolve_eq(s2, l2)
+
+
+@pytest.mark.parametrize("bsz", [1, 128, 1024])
+def test_resolve_kernel_members(dev, bsz):
+    """One member, a stripped-decode group of 128 and a 64 MiB shard's
+    1024, at 65,536 positions each."""
+    src, lit = _resolve_rows(dev, bsz, 65536, bsz, far=bsz < 1024)
+    _resolve_eq(src, lit)
+
+
 @pytest.mark.parametrize("name", ["pgzf_sync_zipf_small.pgz",
                                   "pgzf_sync_zipf_2m.pgz"])
 def test_decompress_to_device_on_cuda(dev, name, monkeypatch):
@@ -798,6 +890,73 @@ def test_hash_kernel_matches_plain(lcp_rows):
     got = hm.hash_candidates(h)
     assert got.is_cuda
     _eq(got, hm.hash_candidates_plain(h))
+
+
+def _hash_ids(dev, kind, bsz, n, seed):
+    """(B, n) int32 ids of one kind: ``text`` (``keys_hashes`` of the
+    zipf text), ``equal`` (every id the same), ``low`` (1-3 buckets with
+    equal low bits, so 4-8 positions of a step share them, 2
+    fingerprints), ``fp`` (one bucket, ids that differ only in fp),
+    ``wild`` (any int32, negative and >= 2^14 fingerprints among them),
+    ``edges`` (a bucket written only at the last step of each warp's chunk
+    and looked up at the first step of the chunks after the next)."""
+    rng = np.random.default_rng(seed)
+    if kind == "text":
+        plain = gzip.decompress((DATA / "pgzf_sync_zipf_2m.pgz").read_bytes())
+        reps = -(-bsz * n // len(plain))
+        rows = np.frombuffer((plain * reps)[:bsz * n], np.uint8)
+        return hm.keys_hashes(torch.from_numpy(rows.copy()).view(
+            bsz, n).to(dev))
+    if kind == "equal":
+        ids = np.full((bsz, n), 5 | 9 << 12)
+    elif kind == "low":
+        ids = (rng.integers(0, 3, (bsz, n)) * 8 + 16
+               | rng.integers(0, 2, (bsz, n)) << 12)
+    elif kind == "fp":
+        ids = 77 | rng.integers(0, 3, (bsz, n)) << 12
+    elif kind == "wild":
+        ids = rng.integers(-2**31, 2**31, (bsz, n))
+        ids[:, ::2] = (rng.integers(0, 3, (bsz, (n + 1) // 2))
+                       | rng.choice([-2, -1, 0, 1, 1 << 14, 1 << 19],
+                                    (bsz, (n + 1) // 2)) << 12)
+    else:
+        ids = rng.integers(100, 4000, (bsz, n)) | 1 << 12
+        chunk = hm.kernel_info(n)["chunk"]
+        for c0 in range(0, n, chunk):
+            ids[:, min(c0 + chunk, n) - 8:min(c0 + chunk, n)] = 77 | 5 << 12
+            if c0 + 2 * chunk < n:
+                ids[:, c0 + 2 * chunk] = 77 | 5 << 12
+    return torch.from_numpy((ids & 0xFFFFFFFF).astype(np.uint32).view(
+        np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("n", [8, 2048, 65536, 131072])
+@pytest.mark.parametrize("kind", ["text", "equal", "low", "fp", "wild",
+                                  "edges"])
+def test_hash_kernel_id_kinds(dev, kind, n):
+    h = _hash_ids(dev, kind, 1, n, n)
+    got = hm.hash_candidates(h)
+    assert got.is_cuda
+    _eq(got, hm.hash_candidates_plain(h))
+
+
+@pytest.mark.parametrize("kind", ["text", "low"])
+def test_hash_kernel_128_members(dev, kind):
+    """The hash profile's batch: 128 members of 65,536 positions."""
+    h = _hash_ids(dev, kind, 128, 65536, 9)
+    _eq(hm.hash_candidates(h), hm.hash_candidates_plain(h))
+
+
+def test_hash_kernel_info(dev):
+    """No spills; one block a member fits an SM; the chunks cover the
+    member in whole 32-position rounds."""
+    for n in (8, 65536, 131072):
+        info = hm.kernel_info(n)
+        assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1
+        assert info["chunk"] % 32 == 0 and info["chunk"] * info["warps"] >= n
+        assert info["dynamic_smem"] >= info["warps"] * 4096 * 4
+    with pytest.raises(RuntimeError, match="lf_hash_info"):
+        hm.kernel_info(12)
 
 
 @pytest.mark.parametrize("matcher,knobs", [

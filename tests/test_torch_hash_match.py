@@ -62,6 +62,64 @@ def _sequential(v, newest: int | None):
     return out
 
 
+def _reformulated(ids):
+    """Candidates without a table walk, as the kernel computes them: (1)
+    each position's writer flag from its step's 8 ids alone; (2) the
+    latest writer of its bucket in an earlier step, by a stable sort on
+    the bucket and an exclusive running max of writer positions in each
+    bucket's run (a step's writer is the last position of its (step,
+    bucket) run, so the exclusive max leaves the own step out); (3) that
+    writer's fingerprint against the position's (a negative one never
+    matches, as the plain version's slot is then negative); (4) the step
+    override: the latest earlier position of the step with an equal id."""
+    v = ids.astype(np.int64)
+    bsz, n = v.shape
+    steps = v.reshape(bsz, n // 8, 8)
+    later = np.arange(8)[None, :] > np.arange(8)[:, None]       # [j, i]
+    low, bucket = steps & 7, steps & 4095
+    newer_low = ((low[..., :, None] == low[..., None, :]) & later).sum(-1)
+    newer_bucket = ((bucket[..., :, None] == bucket[..., None, :])
+                    & later).any(-1)
+    writer = ((newer_low < 3) & ~newer_bucket).reshape(bsz, n)
+    fp = v >> 12
+    out = np.empty((bsz, n), np.int64)
+    for m in range(bsz):
+        order = np.argsort(v[m] & 4095, kind="stable")
+        run = np.cumsum(np.r_[True, np.diff((v[m] & 4095)[order]) != 0])
+        wpos = np.where(writer[m][order], order, -1)
+        incl = np.maximum.accumulate(run * (n + 1) + wpos + 1) - run * (n + 1)
+        incl = np.maximum(incl - 1, -1)           # -1: none in the run yet
+        excl = np.where(np.r_[True, run[1:] != run[:-1]], -1,
+                        np.r_[-1, incl[:-1]])
+        q = np.empty(n, np.int64)
+        q[order] = excl
+        fq = np.where(q >= 0, fp[m][np.maximum(q, 0)], -1)
+        out[m] = np.where((q >= 0) & (fq >= 0) & (fq == fp[m]), q, -1)
+    earlier = np.arange(8)[None, :] < np.arange(8)[:, None]     # [j, i]
+    same = (steps[..., :, None] == steps[..., None, :]) & earlier
+    prev = np.where(same, np.arange(8), -1).max(-1)
+    base = (np.arange(n // 8) * 8)[None, :, None]
+    return np.where(prev >= 0, base + prev, out.reshape(steps.shape)).reshape(
+        bsz, n)
+
+
+def _adversarial_ids():
+    """(4, 4096) ids: all equal; 1-3 buckets with equal low bits (4-8
+    positions of a step share them); one bucket, ids differing only in
+    fp; any int32 (negative and >= 2^14 fingerprints among them)."""
+    rng = np.random.default_rng(9)
+    n = 4096
+    wild = rng.integers(-2**31, 2**31, n)
+    wild[::2] = (rng.integers(0, 3, n // 2)
+                 | rng.choice([-2, -1, 0, 1, 1 << 14, 1 << 19], n // 2) << 12)
+    ids = np.stack([np.full(n, 5 | 9 << 12),
+                    rng.integers(0, 3, n) * 8 + 16
+                    | rng.integers(0, 2, n) << 12,
+                    77 | rng.integers(0, 3, n) << 12,
+                    wild])
+    return (ids & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
 @pytest.fixture(scope="module")
 def reference():
     with pytest.MonkeyPatch.context() as mp:
@@ -115,3 +173,20 @@ def test_prefix_candidates_match_reference(reference):
 def test_bad_lengths_raise(shape):
     with pytest.raises(ValueError, match="hash_candidates"):
         hm.hash_candidates(torch.zeros(shape, dtype=torch.int32))
+
+
+def test_reformulation_matches_reference_and_plain(reference):
+    """The parallel reformulation the kernel is built on gives the
+    reference's candidates at its own test shape."""
+    _b, _h, ids, cand, _m = reference
+    got = _reformulated(ids)
+    np.testing.assert_array_equal(got, cand)
+    np.testing.assert_array_equal(
+        got, hm.hash_candidates_plain(torch.from_numpy(ids)).numpy())
+
+
+def test_reformulation_matches_plain_on_adversarial_ids():
+    ids = _adversarial_ids()
+    want = hm.hash_candidates_plain(torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(_reformulated(ids), want)
+    assert (want >= 0).sum(axis=1).min() > 0
