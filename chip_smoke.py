@@ -12,8 +12,9 @@ Phases, each of which raises on failure (exit code != 0):
    decoder (``libflate_tpu_torch/native``) with g++; print the sort
    matcher's and the parse's registers, shared memory and resident
    clusters / blocks at n = 65536, and the rank's, the pack's, the
-   histogram's, the resolve's, the hash matcher's (at n = 65536) and (at
-   the shard's root bits) the sync decode's;
+   histogram's, the resolve's, the hash matcher's (at n = 65536), the
+   LCP's (at n = 65536, windows 32768 and 8192), the speculative walk's
+   and (at the shard's root bits) the sync decode's;
 3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
    a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
    gzip is the oracle; the host staging time is printed;
@@ -41,8 +42,10 @@ Phases, each of which raises on failure (exit code != 0):
    the first batch's full shapes (128 x 65536), bit-exact;
    6b. the encode options' kernels against their plain versions on the
    same batch, bit-exact: the LCP as the quality mode calls it (sort
-   matcher's exact prefix, 8 rounds) and as the hash profile does (hash
-   candidates, 6 rounds), one chain level's gather, the hash table;
+   matcher's exact prefix, 8 rounds, window 8192; and on a chain level's
+   candidates, no prefix, 8 rounds, window 32768) and as the hash
+   profile does (hash candidates, 6 rounds), one chain level's gather,
+   the hash table;
 7. the encode main path ``compress(device="cuda")`` of the 64 MiB,
    counted: every encode kernel launched (the sort and the scan once per
    batch, here and in the quality mode), the stream read back by stdlib
@@ -60,12 +63,15 @@ Phases, each of which raises on failure (exit code != 0):
 9. timing with CUDA events (kernels, plain versions, yardsticks, among
    them ``torch.searchsorted`` of every output position, the search half
    of the rank kernel only, which is printed beside it and is not its
-   ``library_ms``; the sync decode, rank, resolve, histogram, pack and
-   hash kernels also launched alone, 48 back to back, on the same inputs
-   and cycling through four copies of them (more bytes than L2 holds),
-   the resolve also on the first 128 members (one stripped-decode group),
-   beside the pack's row memset, and the sync decode's time per token
-   step; the resolve's and the hash kernel's bounds and half marks; the
+   ``library_ms``; the sync decode, rank, resolve, histogram, pack,
+   hash, LCP (its three calls) and speculative walk kernels also
+   launched alone, 48 back to back, on the same inputs and cycling
+   through four copies of them (more bytes than L2 holds), the resolve
+   also on the first 128 members (one stripped-decode group), beside the
+   pack's row memset, and the sync decode's time per token step; the
+   resolve's, the hash kernel's, each LCP call's and the walk's bounds
+   (the walk's from the 32-byte sectors its visits touch) and half
+   marks; the
    sync, speculative and foreign decode chains, the chains of the three
    encode modes) and on the host clock (the end-to-end calls, host staging
    and the foreign path's host token decode split out), each with the
@@ -201,6 +207,27 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def walk_visits(nxt: torch.Tensor, entries: torch.Tensor) -> torch.Tensor:
+    """(B, P) bool: the positions the speculative walks visit (the walk of
+    ``decode.walk_emit_plain``, marking each position it emits from)."""
+    from libflate_tpu_torch.ops import decode
+    bsz, p_total = nxt.shape
+    nc = p_total // decode.CHAIN_CHUNK
+    dev = nxt.device
+    base = torch.arange(nc, device=dev)[None, :] * decode.CHAIN_CHUNK
+    member = torch.arange(bsz, device=dev)[:, None].expand(bsz, nc)
+    nxt64, cur = nxt.to(torch.int64), entries.to(torch.int64)
+    seen = torch.zeros((bsz, p_total), dtype=torch.bool, device=dev)
+    for _ in range(decode.MAX_EMIT):
+        inside = (cur >= base) & (cur < base + decode.CHAIN_CHUNK)
+        at = cur.clamp(0, p_total - 1)
+        seen[member[inside], at[inside]] = True
+        nv = torch.gather(nxt64, 1, at)
+        cur = torch.where(inside, torch.where(nv == cur, 0x7FFFFFF0, nv),
+                          cur)
+    return seen
+
+
 def check_one_sort_per_batch(counts: dict, n_batches: int, what: str):
     """The sort matcher launches its sort and its scan once per batch."""
     for k in ("sort_match.sort_keys", "sort_match.scan_emit"):
@@ -255,6 +282,11 @@ def main() -> None:
         f"[{card_line}]")
     log(f"resolve.cu: {json.dumps(expand.kernel_info())} [{card_line}]")
     log(f"hash.cu at n=65536: {json.dumps(hm.kernel_info(65536))} "
+        f"[{card_line}]")
+    log(f"lcp.cu at n=65536: window 32768 (chain levels, hash) "
+        f"{json.dumps(lcp.kernel_info(65536, 32768))}, window 8192 (sort "
+        f"m4) {json.dumps(lcp.kernel_info(65536, 8192))} [{card_line}]")
+    log(f"spec_decode.cu walk_emit: {json.dumps(decode.kernel_info())} "
         f"[{card_line}]")
 
     # 3. decode input and oracle
@@ -559,24 +591,33 @@ def main() -> None:
     ln6_p = lcp.match_lengths_plain(*hlcp_args, **hlcp_kw)
     level2 = gather.gather_rows(cand, cand, window=32768)
     level2_p = gather.gather_rows_plain(cand, cand, window=32768)
+    # a chain level of the quality mode: no m4, lcp_rounds=8, window 32768
+    clcp_args = (blocks, level2, nv)
+    clcp_kw = {"max_rounds": 8, "window": 32768}
+    lnc = lcp.match_lengths(*clcp_args, **clcp_kw)
+    lnc_p = lcp.match_lengths_plain(*clcp_args, **clcp_kw)
     torch.cuda.synchronize()
+    lcp_errs = {"sort m4": max_abs_err(ln8, ln8_p),
+                "chain level": max_abs_err(lnc, lnc_p),
+                "hash": max_abs_err(ln6, ln6_p)}
     errs.update({
-        kname(lcp.match_lengths): max(max_abs_err(ln8, ln8_p),
-                                      max_abs_err(ln6, ln6_p)),
+        kname(lcp.match_lengths): max(lcp_errs.values()),
         kname(gather.gather_rows): max_abs_err(level2, level2_p),
         kname(hm.hash_candidates): max_abs_err(hcand_raw, hcand_raw_p)})
     log(f"option kernels vs plain at members={n_b} n={ms_enc}: "
-        f"match_lengths (sort m4, 8 rounds, window 8192; hash cand, 6 "
-        f"rounds, window 32768) {errs['lcp.match_lengths']}, gather_rows "
-        f"(chain level 2) {errs['gather.gather_rows']}, hash_candidates "
+        f"match_lengths (sort m4, 8 rounds, window 8192; chain level 2, "
+        f"no m4, 8 rounds, window 32768; hash cand, 6 rounds, window "
+        f"32768) {lcp_errs}, gather_rows (chain level 2) "
+        f"{errs['gather.gather_rows']}, hash_candidates "
         f"{errs['hash_match.hash_candidates']} (lengths > 16: "
-        f"{int((ln8 > 16).sum())}; hash cand >= 0: "
+        f"{int((ln8 > 16).sum())}; chain-level lengths 32: "
+        f"{int((lnc == 32).sum())}; hash cand >= 0: "
         f"{int((hcand >= 0).sum())}; level-2 cand >= 0: "
         f"{int((level2 >= 0).sum())})")
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: "
                              f"{errs}")
-    del ln8_p, ln6_p, level2_p, hcand_raw_p
+    del ln8_p, ln6_p, lnc_p, level2_p, hcand_raw_p
 
     # 7. the encode main path, counted
     for k in all_kernels:
@@ -714,6 +755,12 @@ def main() -> None:
     v_flat = torch.nn.functional.pad(v_flat, (0, (-v_flat.numel()) % 8))
     hist_sectors = int(v_flat.view(-1, 8).any(dim=1).sum())
     hist_bytes = nbytes(valid, bins) + 2 * 32 * hist_sectors
+    # the speculative walk: the 32-byte sectors of tok and of nxt that hold
+    # a position a walk visits, entries, the emit written once
+    visited = walk_visits(s_nxt, s_ent)
+    walk_sectors = int(visited.view(visited.shape[0], -1, 8).any(dim=2)
+                       .sum())
+    walk_bytes = 2 * 32 * walk_sectors + nbytes(s_ent, s_emit)
     log(f"data-dependent bounds: rank reads {int(rk_args[2].sum())} valid "
         f"of {rk_args[2].numel()} token slots, {rank_bytes} bytes "
         f"(every slot: {nbytes(*rk_args[:4], src, lit)}); pack reads "
@@ -721,7 +768,12 @@ def main() -> None:
         f"{pack_bytes} bytes (every value: "
         f"{nbytes(values, widths, cstarts, words)}); token_hist reads a and "
         f"b in {hist_sectors} of {v_flat.numel() // 8} sectors, "
-        f"{hist_bytes} bytes (every slot: {nbytes(a, b, valid, bins)})")
+        f"{hist_bytes} bytes (every slot: {nbytes(a, b, valid, bins)}); "
+        f"speculative walk_emit visits {int(visited.sum())} positions "
+        f"({emitted} tokens emitted) in {walk_sectors} of "
+        f"{visited.numel() // 8} sectors of tok and of nxt, {walk_bytes} "
+        f"bytes (whole chunks, as the kernel stages them: "
+        f"{nbytes(s_nxt, s_tok, s_ent, s_emit)})")
     rows = [
         # name, source, replaces, kernel, plain, library, bytes, reps
         (kname(sd.sync_decode), "libflate_tpu_torch/csrc/sync_decode.cu",
@@ -809,12 +861,12 @@ def main() -> None:
          lambda: deflate_decode.chain_entries(s_ex, st["starts"]),
          lambda: deflate_decode.chain_entries_plain(s_ex, st["starts"]),
          None, 4 * entered + nbytes(st["starts"], s_ent), 20, 2),
-        # reads tok and nxt at each position the walks visit
+        # reads the sectors of tok and nxt that hold a visited position
         (kname(decode.walk_emit), spec_src,
          "libflate_tpu/ops/pallas_decode.py:271",
          lambda: decode.walk_emit(s_nxt, s_tok, s_ent),
          lambda: decode.walk_emit_plain(s_nxt, s_tok, s_ent), None,
-         8 * emitted + nbytes(s_ent, s_emit), 20, 2),
+         walk_bytes, 20, 2),
         (kname(gather.gather_two), "libflate_tpu_torch/csrc/gather.cu",
          "libflate_tpu/ops/pallas_gather.py:135",
          lambda: gather.gather_two(*g2_args, win=g2_win),
@@ -908,6 +960,29 @@ def main() -> None:
             words_a.data_ptr(), v_.shape[0], v_.shape[1] // pack.F_CH,
             w_out)
 
+    # the three LCP calls: (name, kernel output, its arguments); an m4 of
+    # None passes the candidates in its place, as the wrapper does
+    lcp_calls = [("sort m4", ln8, lcp_args, lcp_kw),
+                 ("chain level", lnc, clcp_args, clcp_kw),
+                 ("hash", ln6, hlcp_args, hlcp_kw)]
+    lcp_outs = {k: torch.empty_like(o_) for k, o_, _a, _k in lcp_calls}
+
+    def lcp_alone(call, kw_, blk_, c_, m_, nv_):
+        wg, first = lcp._band(blk_.shape[1], kw_["window"], m_,
+                              kw_.get("m_exact", 4))
+        m_ = c_ if m_ is None else m_
+        return lambda: _build.launch(
+            "lf_match_lengths", blk_.data_ptr(), c_.data_ptr(),
+            m_.data_ptr(), nv_.data_ptr(), lcp_outs[call].data_ptr(),
+            blk_.shape[0], blk_.shape[1], kw_["max_rounds"], wg, first)
+
+    walk_a = torch.empty_like(s_emit)
+
+    def walk_alone(n_, t_, e_):
+        return lambda: _build.launch(
+            "lf_spec_walk_emit", n_.data_ptr(), t_.data_ptr(), e_.data_ptr(),
+            walk_a.data_ptr(), n_.shape[0], n_.shape[1])
+
     rk_copies = [[x.clone() for x in rk_args[:4]] for _ in range(COLD_COPIES)]
     pk_copies = [[x.clone() for x in (values, widths, cstarts)]
                  for _ in range(COLD_COPIES)]
@@ -918,6 +993,12 @@ def main() -> None:
     rg_copies = [[x[:n_grp].clone() for x in (src, lit)]
                  for _ in range(COLD_COPIES)]
     hh_copies = [ids.clone() for _ in range(COLD_COPIES)]
+    lc_copies = [{k: [blocks.clone(), a_[1].clone(),
+                      None if kw_.get("m4") is None else kw_["m4"].clone(),
+                      nv.clone()] for k, _o, a_, kw_ in lcp_calls}
+                 for _ in range(COLD_COPIES)]
+    wk_copies = [[x.clone() for x in (s_nxt, s_tok, s_ent)]
+                 for _ in range(COLD_COPIES)]
     alone = {
         "sync_decode warm": [sync_alone(*sd_args[:3])],
         "sync_decode cold": [sync_alone(*c) for c in sd_copies],
@@ -936,7 +1017,14 @@ def main() -> None:
         "pack_stitch warm": [pack_alone(values, widths, cstarts)],
         "pack_stitch cold": [pack_alone(*c) for c in pk_copies],
         "pack rows memset": [lambda: torch.zeros_like(words)],
+        "spec walk_emit warm": [walk_alone(s_nxt, s_tok, s_ent)],
+        "spec walk_emit cold": [walk_alone(*c) for c in wk_copies],
     }
+    for k, _o, a_, kw_ in lcp_calls:
+        alone[f"match_lengths {k} warm"] = [lcp_alone(
+            k, kw_, a_[0], a_[1], kw_.get("m4"), a_[2])]
+        alone[f"match_lengths {k} cold"] = [lcp_alone(k, kw_, *c[k])
+                                            for c in lc_copies]
     alone_ms = {k: cuda_ms_many(fns, 12 * COLD_COPIES)
                 for k, fns in alone.items()}
     torch.cuda.synchronize()
@@ -944,13 +1032,17 @@ def main() -> None:
             and torch.equal(words_a, words) and torch.equal(toks_a, toks)
             and torch.equal(bins_a, bins) and torch.equal(out_a, out)
             and torch.equal(out_g_a, out[:n_grp])
-            and torch.equal(hcand_a, hcand_raw)):
+            and torch.equal(hcand_a, hcand_raw)
+            and torch.equal(walk_a, s_emit)
+            and all(torch.equal(lcp_outs[k], o_)
+                    for k, o_, _a, _k in lcp_calls)):
         raise AssertionError("a kernel launched alone gave other outputs")
     log(f"launched alone, {12 * COLD_COPIES} back to back, ms per launch: "
         + ", ".join(f"{k} {v:.4f}" for k, v in alone_ms.items())
         + f" [{card_line}]")
     del src_a, lit_a, words_a, rk_copies, pk_copies, toks_a, sd_copies
     del hs_copies, rs_copies, rg_copies, hh_copies, out_a, out_g_a, hcand_a
+    del lc_copies, wk_copies, walk_a, lcp_outs
     # the resolve and the hash kernel against their bounds (resolve: src
     # and lit read, the bytes written, 9 bytes a position; hash: the ids
     # read, the candidates written, 8 bytes a position; the hash kernel's
@@ -985,6 +1077,30 @@ def main() -> None:
         f"{mark(alone_ms['hash_candidates warm'], hsh_r['bound_ms'])}, cold "
         f"{mark(alone_ms['hash_candidates cold'], hsh_r['bound_ms'])} "
         f"[{card_line}]")
+    # each LCP call beside its bound (blocks, candidates, m4 where given,
+    # n_valid read once, the lengths written once); the JSON row is the
+    # sort-m4 call
+    for k, o_, a_, kw_ in lcp_calls:
+        l_bytes = nbytes(*a_, *([kw_["m4"]] if "m4" in kw_ else []), o_)
+        lb = l_bytes / HBM_BYTES_PER_MS
+        k_ms = cuda_ms(lambda: lcp.match_lengths(*a_, **kw_), 20)
+        p_ms = cuda_ms(lambda: lcp.match_lengths_plain(*a_, **kw_), 3)
+        log(f"lcp.match_lengths [{k}: {'m4, ' if 'm4' in kw_ else 'no m4, '}"
+            f"{kw_['max_rounds']} rounds, window {kw_['window']}]: kernel "
+            f"{mark(k_ms, lb)}, plain {p_ms:.4f} ms, bound {lb:.4f} ms "
+            f"({l_bytes} bytes), half mark "
+            f"{2 * lb:.4f} ms; alone warm "
+            f"{mark(alone_ms[f'match_lengths {k} warm'], lb)}, cold "
+            f"{mark(alone_ms[f'match_lengths {k} cold'], lb)} [{card_line}]")
+    wlk = row[kname(decode.walk_emit)]
+    log(f"spec walk_emit at {tuple(s_nxt.shape)} ({s_ent.numel()} chunks): "
+        f"bound {wlk['bound_ms']:.4f} ms ({walk_bytes} bytes, the visited "
+        f"sectors), half mark {2 * wlk['bound_ms']:.4f} ms: row "
+        f"{mark(wlk['ms'], wlk['bound_ms'])}, alone warm "
+        f"{mark(alone_ms['spec walk_emit warm'], wlk['bound_ms'])}, cold "
+        f"{mark(alone_ms['spec walk_emit cold'], wlk['bound_ms'])}; whole "
+        f"chunks {nbytes(s_nxt, s_tok, s_ent, s_emit) / HBM_BYTES_PER_MS:.4f}"
+        f" ms [{card_line}]")
     sdr = row[kname(sd.sync_decode)]
     k_tok = g["k_tok"]
 
@@ -1221,6 +1337,8 @@ def main() -> None:
             lambda: pipeline.lengths_stage(blocks, nv, hcand),
         "match_lengths, hash candidates, 6 rounds, window 32768":
             lambda: lcp.match_lengths(*hlcp_args, **hlcp_kw),
+        "match_lengths, chain level 2, 8 rounds, window 32768":
+            lambda: lcp.match_lengths(*clcp_args, **clcp_kw),
     }
     opt_breakdown = {k: cuda_ms(fn, 5) for k, fn in opt_stages.items()}
     log("option batch chains (encode_batch, 128 x 64 KiB), ms: " + ", ".join(

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "lf_pack_stitch": "ppppiiip",
     "lf_pack_info": "p",
     "lf_match_lengths": "pppppiiiiip",
+    "lf_lcp_info": "iip",
     "lf_gather_rows": "pppiiiip",
     "lf_hash_candidates": "ppiip",
     "lf_hash_info": "ip",
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "lf_spec_chunk_exits": "ppiip",
     "lf_spec_chain_entries": "pppiip",
     "lf_spec_walk_emit": "ppppiip",
+    "lf_spec_walk_info": "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 

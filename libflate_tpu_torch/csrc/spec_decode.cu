@@ -31,12 +31,23 @@
 // the chunks: entry[t] = pos; pos = clip(exit[pos], 0, P-1) while pos lies
 // in chunk t.  A chain of n_chunks dependent loads: latency bound.
 //
-// lf_spec_walk_emit: one thread per (member, chunk) follows the orbit from
-// the chunk's entry for 128 steps, writing the tokens met to consecutive
-// rows, -1 once the walk has left the chunk, and moving to 0x7FFFFFF0
-// after a terminal (nxt == cur) so that it leaves.  Row 128 is -1 when the
-// walk is still inside the chunk after 128 steps (overflow), else 0; rows
-// 129-135 are 0.  128 dependent steps of two loads each: latency bound.
+// lf_spec_walk_emit: per (member, chunk), follow the orbit from the
+// chunk's entry for at most 128 steps, writing the tokens met to
+// consecutive rows, -1 once the walk has left the chunk, and moving to
+// 0x7FFFFFF0 after a terminal (nxt == cur) so that it leaves.  Row 128 is
+// -1 when the walk is still inside the chunk after 128 steps (overflow),
+// else 0; rows 129-135 are 0.  A walk reads only positions of its own
+// chunk, and the chunks of consecutive (member, chunk) ids are contiguous
+// in tok, nxt and the emit.  So persistent 128-thread blocks take stages
+// of 4 consecutive chunks: each stage's tok and nxt (16 KiB) come into
+// shared memory with coalesced 16-byte cp.async, one stage ahead of the
+// walk (two buffers); a lane of each warp walks one chunk there and stops
+// once the walk has left it; the block then writes the stage's 4 x 136
+// emit rows as 16-byte stores.  Bound by bytes: a walk visits about one
+// position in eleven, but on text two thirds of the 32-byte sectors of tok
+// and nxt hold one (chip_smoke.py counts them), so staging whole chunks,
+// 8 bytes a position plus the emit (206 MB for a group of 128 members at
+// P = 178176), moves 1.4 times the sectors the walks need.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -62,6 +73,9 @@ constexpr int kExitChunks = 16;            // chunks per exits block
 constexpr int kExitStride = kChunk + 1;    // padded shared row
 
 constexpr int kWalkThreads = 128;
+constexpr int kWalkChunks = kWalkThreads / 32;  // a stage: a walker a warp
+constexpr int kWalkStages = 2;                   // stage buffers
+static_assert(4 * kWalkThreads == kChunk, "a 16-byte copy a thread");
 
 __global__ void __launch_bounds__(kDecThreads)
 spec_decode_kernel(const uint32_t* __restrict__ words,
@@ -167,30 +181,119 @@ __global__ void spec_chain_entries_kernel(const int32_t* __restrict__ exits,
   }
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::
+               "r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::
+               "r"(smem_addr(dst)), "l"(src));
+}
+
 __global__ void __launch_bounds__(kWalkThreads)
 spec_walk_emit_kernel(const int32_t* __restrict__ nxt,
                       const int32_t* __restrict__ tok,
                       const int32_t* __restrict__ entries,
-                      int32_t* __restrict__ out, int n_members, int n_pos) {
-  const int nc = n_pos / kChunk;
-  const int id = static_cast<int>(blockIdx.x * kWalkThreads + threadIdx.x);
-  if (id >= n_members * nc) return;
-  const int b = id / nc, c = id % nc;
-  const int64_t row = static_cast<int64_t>(b) * n_pos;
-  const int base = c * kChunk, end = base + kChunk;
-  int32_t* o = out + static_cast<int64_t>(id) * kEmitRows;
-  int cur = entries[id];
-  for (int i = 0; i < kMaxEmit; ++i) {
-    if (cur >= base && cur < end) {
-      o[i] = tok[row + cur];
-      const int nv = nxt[row + cur];
-      cur = nv == cur ? kGone : nv;
-    } else {
-      o[i] = -1;
+                      int32_t* __restrict__ out, int64_t total, int nc) {
+  __shared__ __align__(16) int32_t s_tok[kWalkStages][kWalkChunks][kChunk];
+  __shared__ __align__(16) int32_t s_nxt[kWalkStages][kWalkChunks][kChunk];
+  __shared__ __align__(16) int32_t s_emit[kWalkChunks][kEmitRows];
+  __shared__ int32_t s_ent[kWalkStages][kWalkChunks];
+  __shared__ int32_t s_steps[kWalkChunks];
+  __shared__ int32_t s_flag[kWalkChunks];
+  const int tid = static_cast<int>(threadIdx.x);
+  const int64_t n_stages = (total + kWalkChunks - 1) / kWalkChunks;
+
+  // Every thread commits one group a stage (possibly empty), so waiting
+  // for all but the newest group waits for the stage about to be walked.
+  auto issue = [&](int64_t s, int buf) {
+    if (s < n_stages) {
+      for (int j = 0; j < kWalkChunks; ++j) {
+        const int64_t id = s * kWalkChunks + j;
+        if (id >= total) break;
+        const int64_t p = id * kChunk + tid * 4;
+        cp_async16(&s_tok[buf][j][tid * 4], tok + p);
+        cp_async16(&s_nxt[buf][j][tid * 4], nxt + p);
+        if (tid == 0) cp_async4(&s_ent[buf][j], entries + id);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  const int64_t stride = gridDim.x;
+  int64_t s = blockIdx.x;
+  issue(s, 0);
+  issue(s + stride, 1);
+  const int warp = tid >> 5;
+  for (int k = 0; s < n_stages; ++k, s += stride) {
+    const int buf = k & 1;
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const int64_t id0 = s * kWalkChunks;
+    if ((tid & 31) == 0 && id0 + warp < total) {
+      const unsigned base =
+          static_cast<unsigned>((id0 + warp) % nc) * kChunk;
+      const int32_t* st = s_tok[buf][warp];
+      const int32_t* sn = s_nxt[buf][warp];
+      int32_t* em = s_emit[warp];
+      unsigned cur = static_cast<unsigned>(s_ent[buf][warp]);
+      int i = 0;
+      while (i < kMaxEmit && cur - base < kChunk) {
+        const unsigned l = cur - base;
+        em[i++] = st[l];
+        const unsigned nv = static_cast<unsigned>(sn[l]);
+        cur = nv == cur ? static_cast<unsigned>(kGone) : nv;
+      }
+      s_steps[warp] = i;
+      s_flag[warp] = cur - base < kChunk ? -1 : 0;
+    }
+    __syncthreads();
+    issue(s + 2 * stride, buf);
+    const int n_here =
+        total - id0 < kWalkChunks ? static_cast<int>(total - id0)
+                                  : kWalkChunks;
+    for (int v = tid; v < n_here * (kEmitRows / 4); v += kWalkThreads) {
+      const int j = v / (kEmitRows / 4), i = (v % (kEmitRows / 4)) * 4;
+      const int steps = s_steps[j], flag = s_flag[j];
+      int r[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int row = i + u;
+        r[u] = row < steps ? s_emit[j][row]
+               : row < kMaxEmit ? -1 : row == kMaxEmit ? flag : 0;
+      }
+      *reinterpret_cast<int4*>(out + (id0 + j) * kEmitRows + i) =
+          make_int4(r[0], r[1], r[2], r[3]);
     }
   }
-  o[kMaxEmit] = cur >= base && cur < end ? -1 : 0;
-  for (int i = kMaxEmit + 1; i < kEmitRows; ++i) o[i] = 0;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Resident walk blocks a SM, per device, for the persistent grid.
+cudaError_t walk_blocks(int* blocks) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && cached[dev]) {
+    *blocks = cached[dev];
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, spec_walk_emit_kernel, kWalkThreads, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *blocks = per_sm * sms;
+  if (*blocks <= 0) return cudaErrorInvalidConfiguration;
+  if (dev < 64) cached[dev] = *blocks;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -245,12 +348,38 @@ extern "C" int lf_spec_walk_emit(const void* nxt, const void* tok,
   if (n_pos % kChunk) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t total = static_cast<int64_t>(n_members) * (n_pos / kChunk);
   if (total > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  spec_walk_emit_kernel<<<static_cast<int>((total + kWalkThreads - 1) /
-                                           kWalkThreads),
-                          kWalkThreads, 0,
+  const auto al16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (!al16(nxt) || !al16(tok) || !al16(out))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  int resident = 0;
+  const cudaError_t err = walk_blocks(&resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_stages = (total + kWalkChunks - 1) / kWalkChunks;
+  const int grid =
+      n_stages < resident ? static_cast<int>(n_stages) : resident;
+  spec_walk_emit_kernel<<<grid, kWalkThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(nxt), static_cast<const int32_t*>(tok),
       static_cast<const int32_t*>(entries), static_cast<int32_t*>(out),
-      n_members, n_pos);
+      total, n_pos / kChunk);
   return static_cast<int>(cudaGetLastError());
+}
+
+// registers, static shared, spill bytes, resident blocks a SM, threads a
+// block, chunks a stage, stage buffers
+extern "C" int lf_spec_walk_info(void* out) {
+  int* o = static_cast<int*>(out);
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, spec_walk_emit_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  o[0] = fa.numRegs;
+  o[1] = static_cast<int>(fa.sharedSizeBytes);
+  o[2] = static_cast<int>(fa.localSizeBytes);
+  o[4] = kWalkThreads;
+  o[5] = kWalkChunks;
+  o[6] = kWalkStages;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &o[3], spec_walk_emit_kernel, kWalkThreads, 0));
 }

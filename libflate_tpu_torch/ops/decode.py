@@ -17,9 +17,12 @@ here every array is member-major ``(B, P)`` with ``B`` the group's real
 members: the reference's ``x[0].T[:B]``.
 
 Token packing (int32): ``a | b << 9 | eob << 25 | bad << 26`` (a: literal
-byte or match length, b: distance, 0 for a literal).
+byte or match length, b: distance, 0 for a literal).  :func:`kernel_info`
+gives how the walk kernel compiled and its geometry.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -39,6 +42,18 @@ BAD_FLAG = 1 << 26
 _GONE = 0x7FFFFFF0
 #: length base/extra then distance base/extra, as the kernel reads them
 ROWS = np.concatenate([LEN_BASE, LEN_EXTRA, DIST_BASE, DIST_EXTRA])
+
+
+def kernel_info() -> dict:
+    """The walk kernel as compiled: registers, static shared and spill
+    bytes, resident blocks per SM, threads a block, chunks a stage and
+    stage buffers."""
+    out = (ctypes.c_int * 7)()
+    err = _build.load().lf_spec_walk_info(out)
+    if err != 0:
+        raise RuntimeError(f"lf_spec_walk_info failed with error {err}")
+    return dict(zip(("regs", "static_smem", "spill_bytes", "blocks_per_sm",
+                     "threads", "chunks_per_stage", "stages"), out))
 
 
 def _check_device(name: str, t: torch.Tensor) -> bool:
@@ -232,7 +247,10 @@ def walk_emit(nxt: torch.Tensor, tok: torch.Tensor,
         raise ValueError("walk_emit: tensors on different devices")
     if _check_device("walk_emit", nxt):
         return walk_emit_plain(nxt, tok, entries)
-    nxt, tok, entries = (t.contiguous() for t in (nxt, tok, entries))
+    # the kernel moves 16-byte pieces of nxt and tok
+    nxt, tok = (t if t.data_ptr() % 16 == 0 else t.clone()
+                for t in (nxt.contiguous(), tok.contiguous()))
+    entries = entries.contiguous()
     out = torch.empty((bsz, entries.shape[1] * EMIT_ROWS), dtype=torch.int32,
                       device=nxt.device)
     _build.launch("lf_spec_walk_emit", nxt.data_ptr(), tok.data_ptr(),

@@ -8,9 +8,12 @@ grown 4 bytes a round for at most ``max_rounds`` rounds, capped at
 reference kernel reads words only inside its swept row groups of 1024
 positions, and a word outside them reads 0; that band is part of the
 result (see ``csrc/lcp.cu``).  One kernel, :func:`match_lengths`, with
-its plain PyTorch version :func:`match_lengths_plain`.
+its plain PyTorch version :func:`match_lengths_plain`;
+:func:`kernel_info` gives how the kernel compiled and its geometry.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -32,6 +35,20 @@ def _band(n: int, window: int, m4, m_exact: int):
         raise ValueError("match_lengths: m_exact must be 4, 8, ... 24")
     return min(window // GROUP + 2, n // GROUP), \
         (0 if m4 is None else m_exact // 4)
+
+
+def kernel_info(n: int = 65536, window: int = 32768) -> dict:
+    """The kernel as compiled, at ``n`` positions a member and ``window``
+    (without ``m4``; the sort matcher's call sweeps ``window=8192``):
+    registers, static shared, spill and dynamic shared bytes, resident
+    blocks per SM, threads a block and positions a block."""
+    win_groups, _first = _band(n, window, None, 4)
+    out = (ctypes.c_int * 7)()
+    err = _build.load().lf_lcp_info(n, win_groups, out)
+    if err != 0:
+        raise RuntimeError(f"lf_lcp_info failed with error {err}")
+    return dict(zip(("regs", "static_smem", "spill_bytes", "dynamic_smem",
+                     "blocks_per_sm", "threads", "slice"), out))
 
 
 def _words_le(blocks: torch.Tensor) -> torch.Tensor:
@@ -112,7 +129,9 @@ def match_lengths(blocks: torch.Tensor, cand: torch.Tensor,
     (the sort matcher's); the first ``m_exact // 4`` rounds are then taken
     as done, and only positions with ``m4 >= m_exact`` whose candidate
     lies in the swept band extend.  CPU tensors run
-    :func:`match_lengths_plain`; CUDA tensors the kernel.
+    :func:`match_lengths_plain`; CUDA tensors the kernel, which takes n
+    up to 2**20 and bands that fit in a block's shared memory (any
+    window up to 160 KiB).
     """
     bsz, n = blocks.shape
     if (cand.shape != blocks.shape or n_valid.shape != (bsz,)
@@ -126,11 +145,12 @@ def match_lengths(blocks: torch.Tensor, cand: torch.Tensor,
         raise ValueError(f"match_lengths: unsupported device "
                          f"{blocks.device}")
     win_groups, first = _band(n, window, m4, m_exact)
-    blk = blocks.contiguous()
-    if blk.data_ptr() % 4:                # the kernel loads aligned words
-        blk = blk.clone()
-    c = cand.to(torch.int32).contiguous()
+    # the kernel moves 16-byte pieces
+    blk, c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (
+        blocks.contiguous(), cand.to(torch.int32).contiguous()))
     m = c if m4 is None else m4.to(torch.int32).contiguous()
+    if m.data_ptr() % 16:
+        m = m.clone()
     nv = n_valid.to(torch.int32).contiguous()
     out = torch.empty_like(c)
     _build.launch("lf_match_lengths", blk.data_ptr(), c.data_ptr(),

@@ -855,9 +855,12 @@ def lcp_rows(dev):
 
 
 @pytest.mark.parametrize("n,window", [(16384, 4096), (65536, 32768),
-                                      (65536, 8192)])
+                                      (65536, 8192), (1024, 32768),
+                                      (4096, 32768)])
 @pytest.mark.parametrize("with_m4", [False, True])
 def test_lcp_kernel_matches_plain(lcp_rows, n, window, with_m4):
+    """n = 1024 (one group) and 4096 at window 32768 sweep the whole
+    member (``win_groups == groups``)."""
     rows, nv, cand, m4 = lcp_rows
     args = (rows[:, :n].contiguous(), cand[:, :n].contiguous(),
             nv.clamp(max=n))
@@ -867,6 +870,132 @@ def test_lcp_kernel_matches_plain(lcp_rows, n, window, with_m4):
     got = lcp.match_lengths(*args, **kw)
     assert got.is_cuda
     _eq(got, lcp.match_lengths_plain(*args, **kw))
+
+
+def test_lcp_kernel_info(dev):
+    """No spills; the chain level's band (34 groups) and the sort
+    matcher's (10) leave room for several blocks on an SM."""
+    wide, narrow = lcp.kernel_info(65536, 32768), lcp.kernel_info(65536,
+                                                                   8192)
+    for info in (wide, narrow):
+        assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 3
+        assert info["slice"] % 1024 == 0 and info["threads"] % 32 == 0
+    span = (34 + wide["slice"] // 1024 - 1) * 1024 + 16
+    assert wide["dynamic_smem"] == span + 8 * wide["slice"]
+    assert narrow["dynamic_smem"] < wide["dynamic_smem"]
+
+
+@pytest.fixture(scope="module")
+def lcp_batch(dev):
+    """128 members of 64 KiB (the 2 MiB zipf text four times) and their
+    level-2 chain candidates, as the quality mode's lengths stage makes
+    them."""
+    plain = gzip.decompress((DATA / "pgzf_sync_zipf_2m.pgz").read_bytes())
+    n = 65536
+    rows = torch.frombuffer(bytearray(plain * 4), dtype=torch.uint8).view(
+        128, n).to(dev)
+    cand, _m4 = sm.sort_candidates(rows)
+    return rows, gather.gather_rows(cand, cand, window=32768)
+
+
+def test_lcp_kernel_chain_level_at_full_batch(lcp_batch):
+    """The quality mode's chain-level call (no m4, 8 rounds, window 32768)
+    at the main path's 128 x 65536."""
+    rows, level2 = lcp_batch
+    nv = torch.full((128,), 65536, dtype=torch.int32, device=rows.device)
+    kw = {"max_rounds": 8, "window": 32768}
+    got = lcp.match_lengths(rows, level2, nv, **kw)
+    _eq(got, lcp.match_lengths_plain(rows, level2, nv, **kw))
+    assert int((got == 32).sum()) > 1000 and int((got < 32).sum()) > 1000
+
+
+def _lcp_case(lcp_rows, case):
+    """(rows, cand, n_valid, max_rounds) of one hard case on the fixture's
+    8 members: n_valid 0 or 40000; 70 rounds on a member whose second
+    half repeats its first (the 258 cap decides); candidates at or after
+    e, spread over the whole row (most outside the band), or any int32
+    (negative and >= n among them); or rows, candidates and m4 given as
+    views 4 bytes past a 16-byte boundary, which the wrapper copies."""
+    rows, nv, cand, _m4 = lcp_rows
+    dev = rows.device
+    bsz, n = rows.shape
+    g = torch.Generator(device=dev).manual_seed(17)
+    pos = torch.arange(n, device=dev)[None, :].expand(bsz, n)
+    rounds = 8
+    if case == "n_valid_0":
+        nv = torch.zeros_like(nv)
+    elif case == "n_valid_40000":
+        nv = torch.full_like(nv, 40000)
+    elif case == "rounds_70":
+        rows = rows.clone()
+        rows[1, 40000:50000] = rows[1, 20000:30000]
+        cand = cand.clone()
+        cand[1, 40000:50000] = torch.arange(20000, 30000, device=dev,
+                                            dtype=torch.int32)
+        rounds = 70
+    elif case == "after":
+        cand = (pos + torch.randint(0, 2000, (bsz, n), generator=g,
+                                    device=dev)).int()
+    elif case == "spread":
+        cand = torch.randint(0, n, (bsz, n), generator=g, device=dev,
+                             dtype=torch.int32)
+    elif case == "wild":
+        cand = torch.randint(-2**31, 2**31 - 1, (bsz, n), generator=g,
+                             device=dev, dtype=torch.int64).int()
+        edge = torch.tensor([-5, -1, n - 1, n, n + 5], device=dev,
+                            dtype=torch.int32)
+        pick = torch.randint(0, 5, (bsz, n), generator=g, device=dev)
+        cand = torch.where(torch.rand((bsz, n), generator=g, device=dev)
+                           < 0.3, edge[pick], cand)
+    elif case == "unaligned":
+        rows, cand = (_unaligned(t) for t in (rows, cand))
+    return rows, cand.contiguous(), nv, rounds
+
+
+def _unaligned(t):
+    """A view of ``t``'s values that starts 4 bytes past a 16-byte
+    boundary."""
+    step = 4 // t.element_size()
+    buf = torch.empty(t.numel() + step, dtype=t.dtype, device=t.device)
+    view = buf[step:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("case", ["n_valid_0", "n_valid_40000", "rounds_70",
+                                  "after", "spread", "wild", "unaligned"])
+@pytest.mark.parametrize("with_m4", [False, True])
+def test_lcp_kernel_hard_cases(lcp_rows, case, with_m4):
+    rows, cand, nv, rounds = _lcp_case(lcp_rows, case)
+    kw = {"max_rounds": rounds, "window": 32768}
+    if with_m4:
+        m4 = lcp_rows[3]
+        kw.update(m4=_unaligned(m4) if case == "unaligned" else m4,
+                  m_exact=sm.M_EXACT, window=8192)
+    got = lcp.match_lengths(rows, cand, nv, **kw)
+    _eq(got, lcp.match_lengths_plain(rows, cand, nv, **kw))
+    if case == "rounds_70" and not with_m4:
+        assert int((got[1, 40000:49000] == 258).sum()) > 8000
+
+
+@pytest.mark.parametrize("m_exact", [4, 16, 24])
+@pytest.mark.parametrize("window", [8192, 32768])
+def test_lcp_kernel_first_rounds(lcp_rows, m_exact, window):
+    """first_round 1, 4 and 6: m4 is the whole-member prefix capped at
+    m_exact, a tenth of it moved up or down (negative among them)."""
+    rows, nv, cand, _m4 = lcp_rows
+    dev = rows.device
+    g = torch.Generator(device=dev).manual_seed(m_exact)
+    m4 = lcp.match_lengths_plain(rows, cand, nv, max_rounds=m_exact // 4,
+                                 window=65536).clamp(max=m_exact)
+    shift = torch.randint(-6, 7, m4.shape, generator=g, device=dev)
+    m4 = torch.where(torch.rand(m4.shape, generator=g, device=dev) < 0.1,
+                     m4 + shift, m4).int()
+    kw = {"max_rounds": 10, "window": window, "m4": m4, "m_exact": m_exact}
+    got = lcp.match_lengths(rows, cand, nv, **kw)
+    _eq(got, lcp.match_lengths_plain(rows, cand, nv, **kw))
+    assert int((got > m_exact).sum()) > 100
 
 
 @pytest.mark.parametrize("window", [None, 2048])
@@ -1075,6 +1204,84 @@ def test_spec_chunk_exits_and_walk_on_random_orbits(dev):
                            dtype=torch.int32)
     _eq(deflate_decode.chain_entries(ex, starts),
         deflate_decode.chain_entries_plain(ex, starts))
+
+
+def _hard_orbits(dev, bsz, p_total, seed):
+    """(nxt, tok, entries) with forward jumps of 1-48, backward jumps and
+    3-cycles inside a chunk (128-step overflows), fixed points
+    (terminals), and in member 0 a chunk whose 128th token is a
+    terminal; entries at chunk starts, at -5 and P + 5, in the next
+    chunk, and anywhere."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nc = p_total // 512
+    pos = torch.arange(p_total, device=dev)[None, :].expand(bsz, p_total)
+    base = pos // 512 * 512
+
+    def coin(p):
+        return torch.rand((bsz, p_total), generator=g, device=dev) < p
+
+    def jump(lo, hi):
+        return torch.randint(lo, hi, (bsz, p_total), generator=g, device=dev)
+
+    nxt = pos + jump(1, 49)
+    nxt = torch.where(coin(0.05), torch.maximum(pos - jump(1, 60), base),
+                      nxt)
+    nxt = torch.where(coin(0.01), pos, nxt)
+    nxt = nxt.int()
+    for c in range(0, nc, 3):                  # a 3-cycle in every 3rd chunk
+        p = c * 512 + 100
+        nxt[:, p], nxt[:, p + 1], nxt[:, p + 2] = p + 1, p + 2, p
+    last = min(nc - 1, 1)                      # 127 steps, then a terminal
+    nxt[0, last * 512:last * 512 + 127] = torch.arange(
+        last * 512 + 1, last * 512 + 128, device=dev, dtype=torch.int32)
+    nxt[0, last * 512 + 127] = last * 512 + 127
+    tok = torch.randint(0, 1 << 27, (bsz, p_total), generator=g, device=dev,
+                        dtype=torch.int32)
+    cb = torch.arange(nc, device=dev)[None, :].expand(bsz, nc) * 512
+    kind = torch.randint(0, 5, (bsz, nc), generator=g, device=dev)
+    anywhere = torch.randint(-5, p_total + 5, (bsz, nc), generator=g,
+                             device=dev)
+    ent = torch.stack([cb, torch.full_like(cb, -5),
+                       torch.full_like(cb, p_total + 5),
+                       cb + 512 + anywhere % 512, anywhere])
+    ent = torch.gather(ent, 0, kind[None])[0].int()
+    ent[0, last] = last * 512
+    if nc > 2:
+        ent[0, 0] = 100                        # on chunk 0's 3-cycle
+    return nxt, tok, ent
+
+
+@pytest.mark.parametrize("bsz,p_total", [(1, 512), (5, 4096),
+                                         (128, 178176)])
+def test_spec_walk_kernel_on_hard_orbits(dev, bsz, p_total):
+    """The walk's stages, partial last stages and the persistent grid's
+    strides: P = 512 with one member (one chunk), 8 chunks, and the main
+    path's 128 x 348 chunks."""
+    nxt, tok, ent = _hard_orbits(dev, bsz, p_total, seed=p_total)
+    got = decode.walk_emit(nxt, tok, ent)
+    _eq(got, decode.walk_emit_plain(nxt, tok, ent))
+    rows = got.view(bsz, -1, decode.EMIT_ROWS)
+    last = min(rows.shape[1] - 1, 1)
+    assert bool((rows[0, last, :decode.MAX_EMIT] >= 0).all())
+    assert int(rows[0, last, decode.MAX_EMIT]) == 0
+    if rows.shape[1] > 2:
+        assert int(rows[0, 0, decode.MAX_EMIT]) == -1
+
+
+def test_spec_walk_kernel_unaligned_views(dev):
+    """Views that start 4 bytes past a 16-byte boundary are copied to
+    aligned memory before the launch."""
+    nxt, tok, ent = _hard_orbits(dev, 3, 2048, seed=4)
+    _eq(decode.walk_emit(_unaligned(nxt), _unaligned(tok), ent),
+        decode.walk_emit_plain(nxt, tok, ent))
+
+
+def test_spec_walk_kernel_info(dev):
+    info = decode.kernel_info()
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 4
+    assert info["threads"] // 32 == info["chunks_per_stage"]
+    assert info["static_smem"] >= info["stages"] * info[
+        "chunks_per_stage"] * 512 * 8
 
 
 @pytest.mark.parametrize("name", ["pgzf_sync_zipf_small.pgz",

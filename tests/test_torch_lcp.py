@@ -7,7 +7,9 @@ chunk repeated 9,000 bytes later, and a short member.  The candidates
 are the sort matcher's at window 32768 with every fifth one moved to a
 random earlier position, so many lie outside the 4096-byte band that the
 kernel sweeps; with the sort matcher's exact prefix ``m4`` those keep
-their 16 bytes, without it they read zero words.  The reference runs
+their 16 bytes, without it they read zero words.  A third case is the
+quality mode's chain-level call (no ``m4``, 8 rounds, window 32768),
+whose band is the whole member here (16 groups).  The reference runs
 once per case, module-scoped.
 """
 import numpy as np
@@ -58,16 +60,21 @@ def reference():
         with_m4 = np.asarray(match_lengths_pallas(
             *args, max_rounds=8, window=WINDOW, m4=jnp.asarray(m4),
             m_exact=sm.M_EXACT))
-    return rows, n_valid, cand, m4, {"none": plain, "m4": with_m4}
+        chain = np.asarray(match_lengths_pallas(*args, max_rounds=8,
+                                                window=32768))
+    return rows, n_valid, cand, m4, {"none": plain, "m4": with_m4,
+                                     "chain": chain}
 
 
-@pytest.mark.parametrize("case", ["none", "m4"])
+@pytest.mark.parametrize("case", ["none", "m4", "chain"])
 def test_match_lengths_plain_matches_reference(reference, case):
     rows, n_valid, cand, m4, want = reference
     t = [torch.from_numpy(a) for a in (rows, cand, n_valid, m4)]
-    kw = ({"max_rounds": 6} if case == "none" else
-          {"max_rounds": 8, "m4": t[3], "m_exact": sm.M_EXACT})
-    got = lcp.match_lengths(t[0], t[1], t[2], window=WINDOW, **kw)
+    kw = {"none": {"max_rounds": 6, "window": WINDOW},
+          "m4": {"max_rounds": 8, "window": WINDOW, "m4": t[3],
+                 "m_exact": sm.M_EXACT},
+          "chain": {"max_rounds": 8, "window": 32768}}[case]
+    got = lcp.match_lengths(t[0], t[1], t[2], **kw)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want[case])
 

@@ -230,6 +230,48 @@ def test_walk_emit_matches_reference(reference):
     np.testing.assert_array_equal(got.numpy(), _lanes(rec["emit"], n))
 
 
+def test_walk_emit_matches_reference_on_random_orbits(reference):
+    """Orbits the decode never makes: jumps of 1-48, backward jumps and
+    3-cycles inside a chunk (128-step overflows), fixed points, a chunk
+    whose 128th token is a terminal, entries at -5, at P + 5, in the next
+    chunk and anywhere.  The reference's kernel runs in interpret mode at
+    the fixture's P, all 128 lanes."""
+    from libflate_tpu.ops import pallas_decode as pd
+    p_total = reference[0]["nxt"].shape[1]
+    nc = p_total // 512
+    rng = np.random.default_rng(9)
+    pos = np.arange(p_total)[:, None]
+    base = pos // 512 * 512
+    nxt = pos + rng.integers(1, 49, (p_total, 128))
+    back = np.maximum(pos - rng.integers(1, 60, (p_total, 128)), base)
+    nxt = np.where(rng.random((p_total, 128)) < 0.05, back, nxt)
+    nxt = np.where(rng.random((p_total, 128)) < 0.01, pos, nxt)
+    for c in range(0, nc, 3):                   # 3-cycles
+        p = c * 512 + 100
+        nxt[p:p + 3] = np.array([p + 1, p + 2, p])[:, None]
+    nxt[512:639, 0] = np.arange(513, 640)       # 127 steps, then
+    nxt[639, 0] = 639                           # a terminal
+    tok = rng.integers(0, 1 << 27, (p_total, 128))
+    cb = np.arange(nc)[:, None] * 512 + np.zeros((1, 128), np.int64)
+    anywhere = rng.integers(-5, p_total + 5, (nc, 128))
+    ent = np.stack([cb, np.full_like(cb, -5), np.full_like(cb, p_total + 5),
+                    cb + 512 + anywhere % 512, anywhere])
+    ent = np.take_along_axis(ent, rng.integers(0, 5, (1, nc, 128)), 0)[0]
+    ent[0, 0], ent[1, 0] = 100, 512
+    nxt, tok, ent = (x[None].astype(np.int32) for x in (nxt, tok, ent))
+    with reference_spec([]):
+        want = np.asarray(pd.walk_emit(jnp.asarray(nxt), jnp.asarray(tok),
+                                       jnp.asarray(ent)))
+    got = decode.walk_emit(torch.from_numpy(nxt[0].T.copy()),
+                           torch.from_numpy(tok[0].T.copy()),
+                           torch.from_numpy(ent[0].T.copy()))
+    np.testing.assert_array_equal(got.numpy(), want[0].T)
+    flags = want[0].reshape(nc, decode.EMIT_ROWS, 128)[:, decode.MAX_EMIT]
+    assert flags[0, 0] == -1 and flags[1, 0] == 0 and (flags == 0).any()
+    assert (want[0].reshape(nc, decode.EMIT_ROWS, 128)[1, :decode.MAX_EMIT,
+                                                        0] >= 0).all()
+
+
 def test_tokens_from_emit_packed_matches_reference(reference):
     rec, packed, nt, cap = reference
     n = rec["n"]
