@@ -13,8 +13,9 @@ Phases, each of which raises on failure (exit code != 0):
    matcher's and the parse's registers, shared memory and resident
    clusters / blocks at n = 65536, and the rank's, the pack's, the
    histogram's, the resolve's, the hash matcher's (at n = 65536), the
-   LCP's (at n = 65536, windows 32768 and 8192), the speculative walk's
-   and (at the shard's root bits) the sync decode's;
+   LCP's (at n = 65536, windows 32768 and 8192), the speculative position
+   decode's, chunk exits' and walk's and (at the shard's root bits) the
+   sync decode's;
 3. decode input: ``tests/data/pgzf_sync_zipf_2m.pgz`` repeated 32 times,
    a 64 MiB-plaintext shard of 1024 sync-indexed 64 KiB members; stdlib
    gzip is the oracle; the host staging time is printed;
@@ -64,14 +65,15 @@ Phases, each of which raises on failure (exit code != 0):
    them ``torch.searchsorted`` of every output position, the search half
    of the rank kernel only, which is printed beside it and is not its
    ``library_ms``; the sync decode, rank, resolve, histogram, pack,
-   hash, LCP (its three calls) and speculative walk kernels also
-   launched alone, 48 back to back, on the same inputs and cycling
-   through four copies of them (more bytes than L2 holds), the resolve
+   hash, LCP (its three calls) and speculative position decode, chunk
+   exit and walk kernels also launched alone, 48 back to back, on the
+   same inputs and cycling through four copies of them (more bytes than
+   L2 holds), the resolve
    also on the first 128 members (one stripped-decode group), beside the
    pack's row memset, and the sync decode's time per token step; the
-   resolve's, the hash kernel's, each LCP call's and the walk's bounds
-   (the walk's from the 32-byte sectors its visits touch) and half
-   marks; the
+   resolve's, the hash kernel's, each LCP call's, the speculative
+   position decode's, chunk exits' and walk's bounds (the walk's from the
+   32-byte sectors its visits touch) and half marks; the
    sync, speculative and foreign decode chains, the chains of the three
    encode modes) and on the host clock (the end-to-end calls, host staging
    and the foreign path's host token decode split out), each with the
@@ -286,8 +288,10 @@ def main() -> None:
     log(f"lcp.cu at n=65536: window 32768 (chain levels, hash) "
         f"{json.dumps(lcp.kernel_info(65536, 32768))}, window 8192 (sort "
         f"m4) {json.dumps(lcp.kernel_info(65536, 8192))} [{card_line}]")
-    log(f"spec_decode.cu walk_emit: {json.dumps(decode.kernel_info())} "
-        f"[{card_line}]")
+    log("spec_decode.cu: " + ", ".join(
+        f"{k} {json.dumps(decode.kernel_info(k))}"
+        for k in ("speculative_decode_positions", "chunk_exit_maps",
+                  "walk_emit")) + f" [{card_line}]")
 
     # 3. decode input and oracle
     stream = FIXTURE.read_bytes() * COPIES
@@ -977,6 +981,21 @@ def main() -> None:
             blk_.shape[0], blk_.shape[1], kw_["max_rounds"], wg, first)
 
     walk_a = torch.empty_like(s_emit)
+    dec_tok_a, dec_nxt_a = torch.empty_like(s_tok), torch.empty_like(s_nxt)
+    exits_a = torch.empty_like(s_ex)
+    spec_rows = torch.from_numpy(decode.ROWS).to(dev)
+
+    def spec_decode_alone(w_):
+        return lambda: _build.launch(
+            "lf_spec_decode", w_.data_ptr(), st["lit_t"].data_ptr(),
+            st["dist_t"].data_ptr(), spec_rows.data_ptr(),
+            dec_tok_a.data_ptr(), dec_nxt_a.data_ptr(), w_.shape[0],
+            w_.shape[1])
+
+    def exits_alone(n_):
+        return lambda: _build.launch(
+            "lf_spec_chunk_exits", n_.data_ptr(), exits_a.data_ptr(),
+            n_.shape[0], n_.shape[1])
 
     def walk_alone(n_, t_, e_):
         return lambda: _build.launch(
@@ -999,6 +1018,7 @@ def main() -> None:
                  for _ in range(COLD_COPIES)]
     wk_copies = [[x.clone() for x in (s_nxt, s_tok, s_ent)]
                  for _ in range(COLD_COPIES)]
+    sw_copies = [st["words"].clone() for _ in range(COLD_COPIES)]
     alone = {
         "sync_decode warm": [sync_alone(*sd_args[:3])],
         "sync_decode cold": [sync_alone(*c) for c in sd_copies],
@@ -1019,6 +1039,11 @@ def main() -> None:
         "pack rows memset": [lambda: torch.zeros_like(words)],
         "spec walk_emit warm": [walk_alone(s_nxt, s_tok, s_ent)],
         "spec walk_emit cold": [walk_alone(*c) for c in wk_copies],
+        "spec decode_positions warm": [spec_decode_alone(st["words"])],
+        "spec decode_positions cold": [spec_decode_alone(c)
+                                       for c in sw_copies],
+        "spec chunk_exit_maps warm": [exits_alone(s_nxt)],
+        "spec chunk_exit_maps cold": [exits_alone(c[0]) for c in wk_copies],
     }
     for k, _o, a_, kw_ in lcp_calls:
         alone[f"match_lengths {k} warm"] = [lcp_alone(
@@ -1034,6 +1059,9 @@ def main() -> None:
             and torch.equal(out_g_a, out[:n_grp])
             and torch.equal(hcand_a, hcand_raw)
             and torch.equal(walk_a, s_emit)
+            and torch.equal(dec_tok_a, s_tok)
+            and torch.equal(dec_nxt_a, s_nxt)
+            and torch.equal(exits_a, s_ex)
             and all(torch.equal(lcp_outs[k], o_)
                     for k, o_, _a, _k in lcp_calls)):
         raise AssertionError("a kernel launched alone gave other outputs")
@@ -1042,7 +1070,8 @@ def main() -> None:
         + f" [{card_line}]")
     del src_a, lit_a, words_a, rk_copies, pk_copies, toks_a, sd_copies
     del hs_copies, rs_copies, rg_copies, hh_copies, out_a, out_g_a, hcand_a
-    del lc_copies, wk_copies, walk_a, lcp_outs
+    del lc_copies, wk_copies, walk_a, lcp_outs, sw_copies
+    del dec_tok_a, dec_nxt_a, exits_a
     # the resolve and the hash kernel against their bounds (resolve: src
     # and lit read, the bytes written, 9 bytes a position; hash: the ids
     # read, the candidates written, 8 bytes a position; the hash kernel's
@@ -1101,6 +1130,18 @@ def main() -> None:
         f"{mark(alone_ms['spec walk_emit cold'], wlk['bound_ms'])}; whole "
         f"chunks {nbytes(s_nxt, s_tok, s_ent, s_emit) / HBM_BYTES_PER_MS:.4f}"
         f" ms [{card_line}]")
+    # the position decode (words and tables read, tok and nxt written)
+    # and the chunk exits (nxt read, exits written) against their bounds
+    for k, alone_k in ((decode.speculative_decode_positions,
+                        "spec decode_positions"),
+                       (decode.chunk_exit_maps, "spec chunk_exit_maps")):
+        r_ = row[kname(k)]
+        log(f"{kname(k)} at {tuple(s_nxt.shape)}: bound "
+            f"{r_['bound_ms']:.4f} ms, half mark {2 * r_['bound_ms']:.4f} "
+            f"ms: row {mark(r_['ms'], r_['bound_ms'])}, alone warm "
+            f"{mark(alone_ms[f'{alone_k} warm'], r_['bound_ms'])}, cold "
+            f"{mark(alone_ms[f'{alone_k} cold'], r_['bound_ms'])} "
+            f"[{card_line}]")
     sdr = row[kname(sd.sync_decode)]
     k_tok = g["k_tok"]
 

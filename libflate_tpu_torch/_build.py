@@ -55,6 +55,8 @@ _SIGNATURES = {
     "lf_spec_chain_entries": "pppiip",
     "lf_spec_walk_emit": "ppppiip",
     "lf_spec_walk_info": "p",
+    "lf_spec_decode_info": "p",
+    "lf_spec_exits_info": "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 

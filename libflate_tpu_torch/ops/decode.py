@@ -10,7 +10,14 @@ member's first symbol visits exactly its true token boundaries.  The
 orbit is cut into 512-bit chunks: each position's exit from its chunk
 (:func:`chunk_exit_maps`), the orbit's entry into each chunk
 (``ops/deflate_decode.chain_entries``), then every chunk walks its share
-on its own (:func:`walk_emit`).  Three kernels in ``csrc/spec_decode.cu``.
+on its own (:func:`walk_emit`).  Three kernels in ``csrc/spec_decode.cu``:
+the position decode runs a persistent grid whose blocks merge the two
+root tables with the length and distance rows into 4-byte entries in
+shared memory once a launch, and decode 4 consecutive positions a thread
+(two dependent table lookups a position, 16-byte stores); the chunk exits
+take a warp per chunk, resolve each group of 32 positions by pointer
+doubling with shuffles and sweep the groups backward; the walk stages
+4-chunk pieces of tok and nxt in shared memory, a walker a warp.
 
 The reference rides 128 members on the TPU's lanes, ``(1, P, 128)``;
 here every array is member-major ``(B, P)`` with ``B`` the group's real
@@ -18,7 +25,7 @@ members: the reference's ``x[0].T[:B]``.
 
 Token packing (int32): ``a | b << 9 | eob << 25 | bad << 26`` (a: literal
 byte or match length, b: distance, 0 for a literal).  :func:`kernel_info`
-gives how the walk kernel compiled and its geometry.
+gives how each kernel compiled and its geometry.
 """
 from __future__ import annotations
 
@@ -42,18 +49,40 @@ BAD_FLAG = 1 << 26
 _GONE = 0x7FFFFFF0
 #: length base/extra then distance base/extra, as the kernel reads them
 ROWS = np.concatenate([LEN_BASE, LEN_EXTRA, DIST_BASE, DIST_EXTRA])
+_ROWS_ON: dict = {}                 # device -> ROWS uploaded once
 
 
-def kernel_info() -> dict:
-    """The walk kernel as compiled: registers, static shared and spill
-    bytes, resident blocks per SM, threads a block, chunks a stage and
-    stage buffers."""
-    out = (ctypes.c_int * 7)()
-    err = _build.load().lf_spec_walk_info(out)
+#: kernel -> (C info entry, the keys it fills past the first four)
+_INFO = {
+    "speculative_decode_positions": ("lf_spec_decode_info", (
+        "threads", "positions_per_thread", "chunks_per_step")),
+    "chunk_exit_maps": ("lf_spec_exits_info", ("threads", "chunks_per_block")),
+    "walk_emit": ("lf_spec_walk_info", ("threads", "chunks_per_stage",
+                                        "stages")),
+}
+
+
+def kernel_info(kernel: str = "walk_emit") -> dict:
+    """How ``kernel`` (a key of ``_INFO``) compiled: registers, static
+    shared and spill bytes, resident blocks per SM, then its geometry:
+    threads a block and, for the position decode, positions a thread and
+    chunks a block step (a persistent grid); for the chunk exits, chunks
+    a block (a warp each); for the walk, chunks a stage and stage
+    buffers."""
+    fn, keys = _INFO[kernel]
+    out = (ctypes.c_int * 8)()
+    err = getattr(_build.load(), fn)(out)
     if err != 0:
-        raise RuntimeError(f"lf_spec_walk_info failed with error {err}")
-    return dict(zip(("regs", "static_smem", "spill_bytes", "blocks_per_sm",
-                     "threads", "chunks_per_stage", "stages"), out))
+        raise RuntimeError(f"{fn} failed with error {err}")
+    names = ("regs", "static_smem", "spill_bytes", "blocks_per_sm") + keys
+    return dict(zip(names, out))
+
+
+def _rows(device: torch.device) -> torch.Tensor:
+    rows = _ROWS_ON.get(device)
+    if rows is None:
+        rows = _ROWS_ON[device] = torch.from_numpy(ROWS).to(device)
+    return rows
 
 
 def _check_device(name: str, t: torch.Tensor) -> bool:
@@ -146,11 +175,10 @@ def speculative_decode_positions(words: torch.Tensor,
     words = words.contiguous()
     lit = lit_table.to(dev, torch.int32).contiguous()
     dist = dist_table.to(dev, torch.int32).contiguous()
-    rows = torch.from_numpy(ROWS).to(dev)
     tok = torch.empty((bsz, p_total), dtype=torch.int32, device=dev)
     nxt = torch.empty_like(tok)
     _build.launch("lf_spec_decode", words.data_ptr(), lit.data_ptr(),
-                  dist.data_ptr(), rows.data_ptr(), tok.data_ptr(),
+                  dist.data_ptr(), _rows(dev).data_ptr(), tok.data_ptr(),
                   nxt.data_ptr(), bsz, n_words)
     speculative_decode_positions.launches += 1
     return tok, nxt

@@ -1149,12 +1149,12 @@ def spec_group(dev):
     return st
 
 
-def _spec_stages(st, lit_t=None):
+def _spec_stages(st, lit_t=None, dist_t=None):
     lit = st["lit_t"] if lit_t is None else lit_t
-    tok, nxt = decode.speculative_decode_positions(st["words"], lit,
-                                                   st["dist_t"])
+    dist = st["dist_t"] if dist_t is None else dist_t
+    tok, nxt = decode.speculative_decode_positions(st["words"], lit, dist)
     for got, want in zip((tok, nxt), decode.speculative_decode_positions_plain(
-            st["words"], lit, st["dist_t"])):
+            st["words"], lit, dist)):
         _eq(got, want)
     ex = decode.chunk_exit_maps(nxt)
     _eq(ex, decode.chunk_exit_maps_plain(nxt))
@@ -1176,6 +1176,100 @@ def test_spec_kernels_with_bad_codes_match_plain(spec_group):
     lit[(lit >> 4) == ord("e")] = 0
     tok, _emit = _spec_stages(spec_group, lit)
     assert bool(((tok & decode.BAD_FLAG) != 0).any())
+
+
+def test_spec_kernels_with_bad_distance_codes_match_plain(spec_group):
+    """A distance table with holes (a length before one is bad), entries
+    whose symbol is past 29 or negative (clamped) and of every width."""
+    dist = spec_group["dist_t"].clone()
+    dsym = dist >> 4
+    dist[dsym == 1] = 0
+    dist[dsym == 3] = (31 << 4) | (dist[dsym == 3] & 15)
+    dist[dsym == 5] = -(7 << 4) | 9
+    dist[dsym == 7] = (dist[dsym == 7] & ~15) | 15
+    tok, _emit = _spec_stages(spec_group, dist_t=dist)
+    is_len = ((tok & 511) > 2) & (((tok >> 9) & 65535) > 0)
+    assert bool(((tok & decode.BAD_FLAG) != 0).any())
+    assert bool(is_len.any())
+
+
+def _spec_tables(dev, kind, seed):
+    """(lit_t, dist_t): DEFLATE-shaped entries with holes, or any int32
+    (negative symbols, symbols past the alphabets, end-of-block codes,
+    zero widths)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev)
+
+    if kind == "deflate":
+        lit = ints(4096, 0, 300) << 4 | ints(4096, 1, 16)
+        dist = ints(256, 0, 32) << 4 | ints(256, 1, 16)
+    else:
+        lit, dist = ints(4096, -2**31, 2**31), ints(256, -2**31, 2**31)
+        lit = torch.where(ints(4096, 0, 10) == 0, 256 << 4 | ints(4096, 0, 16),
+                          lit)
+    lit = torch.where(ints(4096, 0, 5) == 0, 0, lit)
+    dist = torch.where(ints(256, 0, 5) == 0, 0, dist)
+    return lit.int(), dist.int()
+
+
+@pytest.mark.parametrize("kind", ["deflate", "any"])
+@pytest.mark.parametrize("bsz,n_words", [(1, 20), (3, 36), (130, 148)])
+def test_spec_decode_kernel_on_random_words_and_tables(dev, bsz, n_words,
+                                                       kind):
+    """Random member words under random tables: P of one chunk, 2
+    chunks, and 130 members of 9; with more than one member, the first
+    row is all zeros and the last all ones."""
+    g = torch.Generator(device=dev).manual_seed(n_words)
+    words = torch.randint(-2**31, 2**31, (bsz, n_words), generator=g,
+                          device=dev).int()
+    if bsz > 1:
+        words[0] = 0
+        words[-1] = -1
+    lit, dist = _spec_tables(dev, kind, seed=bsz)
+    got = decode.speculative_decode_positions(words, lit, dist)
+    want = decode.speculative_decode_positions_plain(words, lit, dist)
+    for x, y in zip(got, want):
+        _eq(x, y)
+    tok, nxt = got
+    assert bool(((tok & decode.BAD_FLAG) != 0).any())
+    assert bool(((tok & decode.EOB_FLAG) != 0).any()) or kind == "deflate"
+    _eq(decode.chunk_exit_maps(nxt), decode.chunk_exit_maps_plain(nxt))
+
+
+def _exit_orbits(dev, bsz, p_total, seed):
+    """nxt with forward jumps of 1-600, backward jumps, fixed points,
+    jumps onto the last position of the group and every offset of the
+    next group, onto the chunk end and one either side, any int32; in
+    member 0, chunk 0 is one orbit (nxt = p + 1, 31 steps a group)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.arange(p_total, device=dev)[None, :].expand(bsz, p_total)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (bsz, p_total), generator=g, device=dev)
+
+    choices = torch.stack([
+        pos + ints(1, 601), pos - ints(1, 600), pos,
+        (pos // 32 + 1) * 32 + ints(-1, 32),
+        (pos // 512 + 1) * 512 + ints(-1, 2),
+        ints(-2**31, 2**31)])
+    kind = torch.multinomial(
+        torch.tensor([30., 15, 5, 30, 15, 5], device=dev), bsz * p_total,
+        replacement=True, generator=g).view(1, bsz, p_total)
+    nxt = torch.gather(choices, 0, kind)[0].int()
+    nxt[0, :512] = torch.arange(1, 513, device=dev, dtype=torch.int32)
+    return nxt
+
+
+@pytest.mark.parametrize("bsz,p_total", [(1, 512), (3, 4096), (130, 4096),
+                                         (128, 178176)])
+def test_spec_chunk_exits_kernel_on_hard_orbits(dev, bsz, p_total):
+    nxt = _exit_orbits(dev, bsz, p_total, seed=bsz)
+    got = decode.chunk_exit_maps(nxt)
+    _eq(got, decode.chunk_exit_maps_plain(nxt))
+    assert int(got[0, 0]) == 512
+    _eq(decode.chunk_exit_maps(_unaligned(nxt)), got)
 
 
 def test_spec_chunk_exits_and_walk_on_random_orbits(dev):
@@ -1274,6 +1368,22 @@ def test_spec_walk_kernel_unaligned_views(dev):
     nxt, tok, ent = _hard_orbits(dev, 3, 2048, seed=4)
     _eq(decode.walk_emit(_unaligned(nxt), _unaligned(tok), ent),
         decode.walk_emit_plain(nxt, tok, ent))
+
+
+def test_spec_decode_kernel_info(dev):
+    info = decode.kernel_info("speculative_decode_positions")
+    assert info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] * info["threads"] == 2048
+    assert (info["threads"] * info["positions_per_thread"]
+            == info["chunks_per_step"] * 512)
+    assert info["static_smem"] >= (4096 + 256) * 4
+
+
+def test_spec_exits_kernel_info(dev):
+    info = decode.kernel_info("chunk_exit_maps")
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 4
+    assert info["threads"] == 32 * info["chunks_per_block"]
+    assert info["static_smem"] == info["chunks_per_block"] * 512 * 4
 
 
 def test_spec_walk_kernel_info(dev):

@@ -211,6 +211,32 @@ def test_chunk_exit_maps_match_reference_on_random_orbits(reference):
     assert (want[0] == nxt[0]).mean() < 0.2
 
 
+def test_chunk_exit_maps_match_reference_on_group_edges(reference):
+    """Jumps of 1-48 bits that land on the last position of a 32-position
+    group, on every offset of the next group, and on the chunk end and
+    one either side; whole chunks of one-bit jumps (31 in-group steps)."""
+    from libflate_tpu.ops import pallas_decode as pd
+    p_total = reference[0]["nxt"].shape[1]
+    rng = np.random.default_rng(11)
+    pos = np.arange(p_total)[:, None]
+    group_edge = (pos // 32 + 1) * 32 + rng.integers(-1, 32, (p_total, 128))
+    chunk_end = (pos // 512 + 1) * 512 + rng.integers(-1, 2, (p_total, 128))
+    kind = rng.integers(0, 3, (p_total, 128))
+    nxt = np.select([kind == 0, kind == 1],
+                    [group_edge, chunk_end],
+                    pos + rng.integers(1, 49, (p_total, 128)))
+    nxt = np.where((nxt - pos >= 1) & (nxt - pos <= 48), nxt,
+                   pos + rng.integers(1, 49, (p_total, 128)))
+    nxt[:1024, :2] = pos[:1024] + 1
+    nxt = nxt[None].astype(np.int32)
+    with reference_spec([]):
+        want = np.asarray(pd.chunk_exit_maps(jnp.asarray(nxt)))
+    got = decode.chunk_exit_maps(torch.from_numpy(nxt[0].T.copy()))
+    np.testing.assert_array_equal(got.numpy(), want[0].T)
+    assert (want[0, :512, 0] == 512).all()
+    assert (want[0] != nxt[0]).mean() > 0.5
+
+
 def test_chain_entries_match_reference(reference):
     rec = reference[0]
     x = _inputs(rec)
