@@ -12,7 +12,8 @@ Phases, each of which raises on failure (exit code != 0):
    decoder (``libflate_tpu_torch/native``) with g++; print the sort
    matcher's and the parse's registers, shared memory and resident
    clusters / blocks at n = 65536, and the rank's, the pack's, the
-   histogram's, the resolve's, the hash matcher's (at n = 65536), the
+   histogram's, the token fields', the two-table gather's (windows 16
+   and 128), the resolve's, the hash matcher's (at n = 65536), the
    LCP's (at n = 65536, windows 32768 and 8192), the speculative position
    decode's, chunk exits' and walk's and (at the shard's root bits) the
    sync decode's;
@@ -41,6 +42,9 @@ Phases, each of which raises on failure (exit code != 0):
 6. encode input: that 64 MiB plaintext, 8 batches of 128 members of
    64 KiB; each encode kernel against its plain version on the card at
    the first batch's full shapes (128 x 65536), bit-exact;
+   the token fields also in their per-member form (each member's own
+   package-merged tables, its tokens compacted to a prefix of its valid
+   count, ``n_tokens``);
    6b. the encode options' kernels against their plain versions on the
    same batch, bit-exact: the LCP as the quality mode calls it (sort
    matcher's exact prefix, 8 rounds, window 8192; and on a chain level's
@@ -65,13 +69,16 @@ Phases, each of which raises on failure (exit code != 0):
    them ``torch.searchsorted`` of every output position, the search half
    of the rank kernel only, which is printed beside it and is not its
    ``library_ms``; the sync decode, rank, resolve, histogram, pack,
-   hash, LCP (its three calls) and speculative position decode, chunk
+   hash, LCP (its three calls), token fields (also per member),
+   two-table gather and speculative position decode, chunk
    exit and walk kernels also launched alone, 48 back to back, on the
    same inputs and cycling through four copies of them (more bytes than
    L2 holds), the resolve
    also on the first 128 members (one stripped-decode group), beside the
    pack's row memset, and the sync decode's time per token step; the
-   resolve's, the hash kernel's, each LCP call's, the speculative
+   resolve's, the hash kernel's, the token fields' (both forms), the
+   two-table gather's (tables once, and each group's window rows, as
+   its design reads them), each LCP call's, the speculative
    position decode's, chunk exits' and walk's bounds (the walk's from the
    32-byte sectors its visits touch) and half marks; the
    sync, speculative and foreign decode chains, the chains of the three
@@ -230,6 +237,28 @@ def walk_visits(nxt: torch.Tensor, entries: torch.Tensor) -> torch.Tensor:
     return seen
 
 
+def member_codes(a: torch.Tensor, b: torch.Tensor, n_tokens: torch.Tensor):
+    """Each member's own codes, as the generic engine builds them: the
+    histogram of its first ``n_tokens`` slots, package-merged to at most
+    15 bits; (lit_rev, lit_w) (B, 286) and (dist_rev, dist_w) (B, 30)."""
+    import numpy as np
+    from libflate_tpu_torch.ops import deflate_encode, hist
+    from libflate_tpu_torch.ops.huffman import package_merge_lengths
+    live = (torch.arange(a.shape[1], device=a.device)[None, :]
+            < n_tokens[:, None])
+    codes = [[], [], [], []]
+    for k in range(a.shape[0]):
+        lit, dist = hist.shared_histograms(a[k:k + 1], b[k:k + 1],
+                                           live[k:k + 1])
+        for i, x in enumerate(
+                deflate_encode.encoder_tables(package_merge_lengths(
+                    lit.cpu().numpy(), 15))
+                + deflate_encode.encoder_tables(package_merge_lengths(
+                    dist.cpu().numpy(), 15))):
+            codes[i].append(x)
+    return [np.stack(c) for c in codes]
+
+
 def check_one_sort_per_batch(counts: dict, n_batches: int, what: str):
     """The sort matcher launches its sort and its scan once per batch."""
     for k in ("sort_match.sort_keys", "sort_match.scan_emit"):
@@ -282,6 +311,11 @@ def main() -> None:
     log(f"pack.cu: {json.dumps(pack.kernel_info())} [{card_line}]")
     log(f"fields.cu token_hist: {json.dumps(hist.kernel_info())} "
         f"[{card_line}]")
+    log(f"fields.cu token_fields: {json.dumps(fields.kernel_info())} "
+        f"[{card_line}]")
+    log(f"gather.cu gather_two: window 16 "
+        f"{json.dumps(gather.kernel_info('gather_two', 16))}, window 128 "
+        f"{json.dumps(gather.kernel_info('gather_two', 128))} [{card_line}]")
     log(f"resolve.cu: {json.dumps(expand.kernel_info())} [{card_line}]")
     log(f"hash.cu at n=65536: {json.dumps(hm.kernel_info(65536))} "
         f"[{card_line}]")
@@ -543,6 +577,16 @@ def main() -> None:
     a_h = torch.where(valid, a, -1)
     fv = fields.token_fields(a_h, b, tables)
     fv_p = fields.token_fields_plain(a_h, b, tables)
+    # the per-member form: the batch's tokens compacted to a prefix of
+    # each member's valid count, each member with its own tables
+    pm_nt = valid.sum(dim=1).to(torch.int32)
+    pm_order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    pm_a, pm_b = (torch.gather(x, 1, pm_order) for x in (a, b))
+    del pm_order
+    pm_tables = fields.field_tables(*member_codes(pm_a, pm_b, pm_nt), dev)
+    pm_args = (pm_a, pm_b, pm_tables, pm_nt)
+    pm_fv = fields.token_fields(*pm_args)
+    pm_fv_p = fields.token_fields_plain(*pm_args)
     values, widths = pipeline.shared_assemble(
         *fv, *header, int(stats[2][256]), int(stats[3][256]))
     fpad = (-values.shape[1]) % pack.F_CH
@@ -554,6 +598,7 @@ def main() -> None:
     words = pack.pack_stitch(values, widths, cstarts, w_out)
     words_p = pack.pack_stitch_plain(values, widths, cstarts, w_out)
     torch.cuda.synchronize()
+    pm_err = max(max_abs_err(x, y) for x, y in zip(pm_fv, pm_fv_p))
     enc_errs = {
         kname(sm.sort_keys): max(max_abs_err(sk, sk_p),
                                  max_abs_err(sp, sp_p)),
@@ -563,18 +608,23 @@ def main() -> None:
         kname(parse.walk_emit): max(max_abs_err(slots, slots_p),
                                     max_abs_err(ovf, ovf_p)),
         kname(hist.token_hist): max_abs_err(bins, bins_p),
-        kname(fields.token_fields): max(max_abs_err(x, y)
-                                        for x, y in zip(fv, fv_p)),
+        kname(fields.token_fields): max(pm_err, max(
+            max_abs_err(x, y) for x, y in zip(fv, fv_p))),
         kname(pack.pack_stitch): max_abs_err(words, words_p)}
     errs.update(enc_errs)
     log(f"encode kernels vs plain at members={n_b} n={ms_enc} "
         f"slots={a.shape[1]} fields={values.shape[1]} words={w_out}: "
         f"max_abs_err {enc_errs} "
-        f"(tokens {int(valid.sum())}, overflow {bool(ovf.any())})")
+        f"(tokens {int(valid.sum())}, overflow {bool(ovf.any())}); "
+        f"token_fields per-member form ({tuple(pm_tables.shape)} tables, "
+        f"counts {int(pm_nt.min())}-{int(pm_nt.max())}, widths up to "
+        f"{int(pm_tables[:, fields._LIT_W:fields._DIST_REV].max())} / "
+        f"{int(pm_tables[:, fields._DIST_W:fields._LEN_CODE].max())}): "
+        f"max_abs_err {pm_err}")
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: "
                              f"{errs}")
-    del sk_p, sp_p, cand_p, m4_p, ex_p, slots_p, fv_p, words_p
+    del sk_p, sp_p, cand_p, m4_p, ex_p, slots_p, fv_p, words_p, pm_fv_p
 
     # 6b. the encode options' kernels against their plain versions, same
     # batch: LCP as the quality mode calls it (sort m4, lcp_rounds=8, the
@@ -980,6 +1030,27 @@ def main() -> None:
             m_.data_ptr(), nv_.data_ptr(), lcp_outs[call].data_ptr(),
             blk_.shape[0], blk_.shape[1], kw_["max_rounds"], wg, first)
 
+    fields_a = [torch.empty_like(a_h) for _ in range(4)]
+    pm_fields_a = [torch.empty_like(pm_a) for _ in range(4)]
+
+    def fields_alone(a_, b_, t_, nt_, outs_):
+        """As the wrapper launches it: the shared row and no counts as one
+        flat row, else a row a member."""
+        rows_ = a_.shape[0] if nt_ is not None or t_.dim() == 2 else 1
+        return lambda: _build.launch(
+            "lf_token_fields", a_.data_ptr(), b_.data_ptr(), t_.data_ptr(),
+            fields.N_TABLE if t_.dim() == 2 else 0,
+            None if nt_ is None else nt_.data_ptr(), rows_,
+            a_.numel() // rows_, *(o_.data_ptr() for o_ in outs_))
+
+    g2_out_a = [torch.empty_like(g2_idx) for _ in range(2)]
+
+    def gather_two_alone(ta_, tb_, ix_, lo_):
+        return lambda: _build.launch(
+            "lf_gather_two", ta_.data_ptr(), tb_.data_ptr(), ix_.data_ptr(),
+            lo_.data_ptr(), g2_out_a[0].data_ptr(), g2_out_a[1].data_ptr(),
+            g2_b, g2_r, ix_.shape[1] * 128, g2_win)
+
     walk_a = torch.empty_like(s_emit)
     dec_tok_a, dec_nxt_a = torch.empty_like(s_tok), torch.empty_like(s_nxt)
     exits_a = torch.empty_like(s_ex)
@@ -1019,6 +1090,8 @@ def main() -> None:
     wk_copies = [[x.clone() for x in (s_nxt, s_tok, s_ent)]
                  for _ in range(COLD_COPIES)]
     sw_copies = [st["words"].clone() for _ in range(COLD_COPIES)]
+    tf_copies = [[x.clone() for x in (a_h, b)] for _ in range(COLD_COPIES)]
+    g2_copies = [[x.clone() for x in g2_args] for _ in range(COLD_COPIES)]
     alone = {
         "sync_decode warm": [sync_alone(*sd_args[:3])],
         "sync_decode cold": [sync_alone(*c) for c in sd_copies],
@@ -1044,6 +1117,13 @@ def main() -> None:
                                        for c in sw_copies],
         "spec chunk_exit_maps warm": [exits_alone(s_nxt)],
         "spec chunk_exit_maps cold": [exits_alone(c[0]) for c in wk_copies],
+        "token_fields warm": [fields_alone(a_h, b, tables, None, fields_a)],
+        "token_fields cold": [fields_alone(*c, tables, None, fields_a)
+                              for c in tf_copies],
+        "token_fields per-member warm": [fields_alone(*pm_args,
+                                                      pm_fields_a)],
+        "gather_two warm": [gather_two_alone(*g2_args)],
+        "gather_two cold": [gather_two_alone(*c) for c in g2_copies],
     }
     for k, _o, a_, kw_ in lcp_calls:
         alone[f"match_lengths {k} warm"] = [lcp_alone(
@@ -1062,6 +1142,9 @@ def main() -> None:
             and torch.equal(dec_tok_a, s_tok)
             and torch.equal(dec_nxt_a, s_nxt)
             and torch.equal(exits_a, s_ex)
+            and all(torch.equal(x, y) for x, y in zip(fields_a, fv))
+            and all(torch.equal(x, y) for x, y in zip(pm_fields_a, pm_fv))
+            and all(torch.equal(x, y) for x, y in zip(g2_out_a, g2))
             and all(torch.equal(lcp_outs[k], o_)
                     for k, o_, _a, _k in lcp_calls)):
         raise AssertionError("a kernel launched alone gave other outputs")
@@ -1071,7 +1154,13 @@ def main() -> None:
     del src_a, lit_a, words_a, rk_copies, pk_copies, toks_a, sd_copies
     del hs_copies, rs_copies, rg_copies, hh_copies, out_a, out_g_a, hcand_a
     del lc_copies, wk_copies, walk_a, lcp_outs, sw_copies
-    del dec_tok_a, dec_nxt_a, exits_a
+    del dec_tok_a, dec_nxt_a, exits_a, fields_a, pm_fields_a, g2_out_a
+    # the fields' and gather's copies go now, so the chains' peaks below
+    # count the same live tensors as before those kernels were timed alone
+    for key in [key for key in alone
+                if key.startswith(("token_fields", "gather_two"))]:
+        del alone[key]
+    del tf_copies, g2_copies
     # the resolve and the hash kernel against their bounds (resolve: src
     # and lit read, the bytes written, 9 bytes a position; hash: the ids
     # read, the candidates written, 8 bytes a position; the hash kernel's
@@ -1106,6 +1195,40 @@ def main() -> None:
         f"{mark(alone_ms['hash_candidates warm'], hsh_r['bound_ms'])}, cold "
         f"{mark(alone_ms['hash_candidates cold'], hsh_r['bound_ms'])} "
         f"[{card_line}]")
+    # token_fields: a and b read, four outputs written, the table row(s)
+    # read once; the per-member form also reads its counts.  gather_two:
+    # idx, lo_rows and both tables read once, both outputs written; the
+    # staged design reads each group's window rows, so it is also given
+    # against that count
+    tf_r = row[kname(fields.token_fields)]
+    pm_bytes = nbytes(*pm_args, *pm_fv)
+    pm_bound = pm_bytes / HBM_BYTES_PER_MS
+    pm_ms = cuda_ms(lambda: fields.token_fields(*pm_args), 20)
+    pm_plain_ms = cuda_ms(lambda: fields.token_fields_plain(*pm_args), 3)
+    log(f"token_fields at {tuple(a_h.shape)}: bound {tf_r['bound_ms']:.4f} "
+        f"ms ({nbytes(a_h, b, tables, *fv)} bytes), half mark "
+        f"{2 * tf_r['bound_ms']:.4f} ms: row "
+        f"{mark(tf_r['ms'], tf_r['bound_ms'])}, alone warm "
+        f"{mark(alone_ms['token_fields warm'], tf_r['bound_ms'])}, cold "
+        f"{mark(alone_ms['token_fields cold'], tf_r['bound_ms'])}; "
+        f"per-member form (tables {tuple(pm_tables.shape)}, counts): bound "
+        f"{pm_bound:.4f} ms ({pm_bytes} bytes), row {mark(pm_ms, pm_bound)}"
+        f", alone warm "
+        f"{mark(alone_ms['token_fields per-member warm'], pm_bound)}, plain "
+        f"{pm_plain_ms:.4f} ms [{card_line}]")
+    g2_r_ = row[kname(gather.gather_two)]
+    g2_win_bytes = (nbytes(g2_idx, g2_lo, *g2)
+                    + 2 * g2_lo.numel() * g2_win * 128 * 4)
+    log(f"gather_two at B={g2_b} R=N={g2_r} win={g2_win}: bound "
+        f"{g2_r_['bound_ms']:.4f} ms (tables once: "
+        f"{nbytes(*g2_args, *g2)} bytes), each group's window rows "
+        f"{g2_win_bytes / HBM_BYTES_PER_MS:.4f} ms ({g2_win_bytes} bytes); "
+        f"half mark {2 * g2_r_['bound_ms']:.4f} ms: row "
+        f"{mark(g2_r_['ms'], g2_r_['bound_ms'])}, alone warm "
+        f"{mark(alone_ms['gather_two warm'], g2_r_['bound_ms'])}, cold "
+        f"{mark(alone_ms['gather_two cold'], g2_r_['bound_ms'])}; "
+        f"torch.gather twice {g2_r_['library_ms']:.4f} ms [{card_line}]")
+    del pm_args, pm_a, pm_b, pm_tables, pm_nt, pm_fv
     # each LCP call beside its bound (blocks, candidates, m4 where given,
     # n_valid read once, the lengths written once); the JSON row is the
     # sort-m4 call

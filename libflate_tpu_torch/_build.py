@@ -41,7 +41,8 @@ _SIGNATURES = {
     "lf_parse_info": "ip",
     "lf_token_hist": "pppqppp",
     "lf_hist_info": "p",
-    "lf_token_fields": "pppqppppp",
+    "lf_token_fields": "pppipiqppppp",
+    "lf_fields_info": "p",
     "lf_pack_stitch": "ppppiiip",
     "lf_pack_info": "p",
     "lf_match_lengths": "pppppiiiiip",
@@ -50,6 +51,7 @@ _SIGNATURES = {
     "lf_hash_candidates": "ppiip",
     "lf_hash_info": "ip",
     "lf_gather_two": "ppppppiiiip",
+    "lf_gather_two_info": "ip",
     "lf_spec_decode": "ppppppiip",
     "lf_spec_chunk_exits": "ppiip",
     "lf_spec_chain_entries": "pppiip",

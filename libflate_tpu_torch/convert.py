@@ -91,7 +91,8 @@ def from_reference_options(options):
 _BATCH_DTYPES = {"blocks": torch.uint8, "n_valid": torch.int32,
                  "cand": torch.int32, "m": torch.int32,
                  "lengths": torch.int32, "a": torch.int32,
-                 "b": torch.int32, "valid": torch.bool}
+                 "b": torch.int32, "valid": torch.bool,
+                 "n_tokens": torch.int32}
 
 
 def from_reference_batch(arrays: dict, device="cpu") -> dict:
@@ -99,9 +100,12 @@ def from_reference_batch(arrays: dict, device="cpu") -> dict:
 
     Takes any of ``blocks`` (B, n), ``n_valid`` (B,), the matcher's
     ``cand`` and ``m``, ``lengths``, the padded tokens ``a``, ``b`` and
-    ``valid`` (B, M), and the shared tables ``lit_rev``, ``lit_w``,
-    ``dist_rev``, ``dist_w``; the tables become the one ``tables`` operand
-    of ``ops/fields.token_fields``.
+    ``valid`` (B, M), the token counts ``n_tokens`` (B,), and the tables
+    ``lit_rev``, ``lit_w``, ``dist_rev``, ``dist_w``: shared (286 or 288
+    and 30 entries) or one row a member ((B, 286 or 288) and (B, 30), as
+    ``token_fields_pallas`` takes them); the tables become the one
+    ``tables`` operand of ``ops/fields.token_fields``, (N_TABLE,) or
+    (B, N_TABLE).
     """
     from .ops.fields import field_tables
     out = {k: torch.from_numpy(np.array(v)).to(device, _BATCH_DTYPES[k])

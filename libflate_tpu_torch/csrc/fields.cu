@@ -37,13 +37,34 @@
 // `token_fields_pallas` / `_fields_compute`: per token slot the first
 // field (literal or length code, bit-reversed, plus the length's extra
 // bits) and the second (distance code plus extra bits) as (value, width)
-// pairs.  One thread per slot (grid-stride); the shared code tables and
-// the length and distance LUTs are copied to shared memory once per
-// block, and the distance code comes from the position of the highest
-// set bit (the TPU kernel's float exponent trick, done with __clz).
-// A slot with a < 0 is a hole: both widths 0.  It reads a and b and
-// writes four int32 per slot (24 bytes per slot: 0.05 ms), one coalesced
-// pass.
+// pairs, with the code tables shared by the batch (stride 0) or given per
+// member, and a slot valid iff slot < n_tokens[member] (when given) and
+// a >= 0; an invalid slot gets widths 0.  The TPU kernel looks every
+// table up with lane shuffles over 128-entry row groups and finds the
+// distance code from a float exponent; nothing of that carries over.
+//
+// What bounds it: bytes.  It reads a and b and writes four int32 a slot
+// (24 bytes: 151 MB, 0.045 ms at 3.35 TB/s for the encode's 128 x 49152
+// slots); the tables are ~6 KB a member.  Its design:
+//
+// * Merged entries: a block turns its member's raw tables into one
+//   32-bit f1 entry per literal (0..255) and per match length (0..258),
+//   value rev[sym] | extra << w[sym] in bits 0..19 and width w[sym] +
+//   nextra in bits 20..31, and one f2 entry per distance symbol, rev in
+//   bits 0..15 and width above.  Exact for DEFLATE's ranges (widths <=
+//   15, rev < 2^15, length extra < 2^5), which ops/fields.field_tables
+//   checks before it uploads a table.  A slot then takes one shared
+//   lookup for each field; the distance symbol, its base and extra-bit
+//   count come from the highest set bit of d - 1.
+// * A persistent grid sized to the resident blocks; each block takes a
+//   contiguous range of 4096-slot tiles in member-major order, so it
+//   rebuilds its entries only where its range crosses into another
+//   member (a stride-0 table: once a launch).
+// * 16-byte accesses: a thread loads four groups of four slots of a and
+//   b as int4 before it computes any, and before the block builds its
+//   entries, and stores each output as int4, streaming (the outputs are
+//   twice the L2).  Unaligned tensors or rows of M % 4 != 0 slots take a
+//   scalar loop over the same tiles.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -156,42 +177,139 @@ token_hist_kernel(const int32_t* __restrict__ a,
   }
 }
 
+// f1 entries: literal 0..255, then match length 0..258; f2: distance
+constexpr int kF1Len = 256;
+constexpr int kF1 = kF1Len + kMaxMatch + 1;
+constexpr int kF2 = 30;
+
+__device__ __forceinline__ int table_sym(int s) {
+  return min(max(s, 0), kDistBase - 1);
+}
+
+// the merged entries of one member's tables (the caller syncs)
+__device__ void build_entries(const int32_t* __restrict__ t, uint32_t* f1,
+                              uint32_t* f2) {
+  for (int i = threadIdx.x; i < kF1 + kF2; i += blockDim.x) {
+    if (i < kF1Len) {
+      f1[i] = static_cast<uint32_t>(__ldg(t + kLitRev + i))
+              | static_cast<uint32_t>(__ldg(t + kLitW + i)) << 20;
+    } else if (i < kF1) {
+      const int len = i - kF1Len;
+      const int sym = table_sym(__ldg(t + kLenCode + len));
+      const uint32_t w = __ldg(t + kLitW + sym);
+      f1[i] = (static_cast<uint32_t>(__ldg(t + kLitRev + sym))
+               | static_cast<uint32_t>(__ldg(t + kLenExtra + len)) << w)
+              | (w + __ldg(t + kLenNextra + len)) << 20;
+    } else {
+      const int ds = i - kF1;
+      f2[ds] = static_cast<uint32_t>(__ldg(t + kDistRev + ds))
+               | static_cast<uint32_t>(__ldg(t + kDistW + ds)) << 16;
+    }
+  }
+}
+
+struct Fields {
+  int v1, w1, v2, w2;
+};
+
+// one slot from the merged entries; `live`: slot < n_tokens
+__device__ __forceinline__ Fields field_slot(int av, int bv, bool live,
+                                             const uint32_t* f1,
+                                             const uint32_t* f2) {
+  const bool valid = live && av >= 0;
+  const bool is_match = valid && bv > 0;
+  const uint32_t e1 =
+      f1[is_match ? kF1Len + min(av, kMaxMatch) : (valid ? min(av, 255) : 0)];
+  const int dm = min(max(bv, 1), kMaxDistance) - 1;
+  const int ds = dist_symbol(dm + 1);
+  const int nx = ds < 4 ? 0 : (ds >> 1) - 1;      // the code's extra bits
+  const uint32_t e2 = f2[ds];
+  const int dw = static_cast<int>(e2 >> 16);
+  Fields f;
+  f.v1 = valid ? static_cast<int>(e1 & 0xfffff) : 0;
+  f.w1 = valid ? static_cast<int>(e1 >> 20) : 0;
+  f.v2 = is_match ? static_cast<int>(e2 & 0xffff)
+                        | ((dm & ((1 << nx) - 1)) << dw) : 0;
+  f.w2 = is_match ? dw + nx : 0;
+  return f;
+}
+
+constexpr int kFieldGroups = 4;                    // int4 groups a thread
+constexpr int kFieldTile = kFieldThreads * 4 * kFieldGroups;   // slots
+
+// a, b, f*: n_members rows of m slots; tables: n_members rows of
+// kTables words, table_stride apart (0: one shared row); n_tokens: one
+// count a member, or null (every slot below m counts).  vec: a, b and the
+// outputs 16-byte aligned and m % 4 == 0.
 __global__ void __launch_bounds__(kFieldThreads)
 token_fields_kernel(const int32_t* __restrict__ a,
                     const int32_t* __restrict__ b,
-                    const int32_t* __restrict__ tables, int64_t n_slots,
+                    const int32_t* __restrict__ tables, int table_stride,
+                    const int32_t* __restrict__ n_tokens, int64_t m,
+                    int64_t tiles_per_member, int64_t n_tiles, bool vec,
                     int32_t* __restrict__ f1v, int32_t* __restrict__ f1w,
                     int32_t* __restrict__ f2v, int32_t* __restrict__ f2w) {
-  __shared__ int32_t t[kTables];
-  for (int i = threadIdx.x; i < kTables; i += blockDim.x) t[i] = tables[i];
-  __syncthreads();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                   + threadIdx.x; i < n_slots; i += stride) {
-    const int av = a[i], bv = b[i];
-    const bool valid = av >= 0;
-    const bool is_match = valid && bv > 0;
-    int v1 = 0, w1 = 0, v2 = 0, w2 = 0;
-    if (valid) {
-      const int a_len = min(av, kMaxMatch);
-      const int sym = is_match ? t[kLenCode + a_len] : min(av, 255);
-      const int lw = t[kLitW + sym];
-      const int nx = is_match ? t[kLenNextra + a_len] : 0;
-      const int xv = is_match ? t[kLenExtra + a_len] : 0;
-      v1 = t[kLitRev + sym] | (xv << lw);
-      w1 = lw + nx;
+  __shared__ uint32_t f1[kF1];
+  __shared__ uint32_t f2[kF2];
+  const int64_t t_end = n_tiles * (blockIdx.x + 1) / gridDim.x;
+  int64_t member = -1;
+  for (int64_t t = n_tiles * blockIdx.x / gridDim.x; t < t_end; ++t) {
+    const int64_t mb = t / tiles_per_member;
+    const int64_t lo = (t - mb * tiles_per_member) * kFieldTile;
+    const int64_t hi = min(lo + kFieldTile, m);
+    const int64_t row = mb * m;
+    // the tile's loads fly while the block builds its entries
+    int4 av[kFieldGroups], bv[kFieldGroups];
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < kFieldGroups; ++k) {
+        const int64_t s = lo + 4 * (threadIdx.x + k * kFieldThreads);
+        if (s < hi) {
+          av[k] = __ldg(reinterpret_cast<const int4*>(a + row + s));
+          bv[k] = __ldg(reinterpret_cast<const int4*>(b + row + s));
+        }
+      }
     }
-    if (is_match) {
-      const int d = min(bv, kMaxDistance);
-      const int ds = dist_symbol(d);
-      const int dw = t[kDistW + ds];
-      v2 = t[kDistRev + ds] | ((d - t[kDistBaseT + ds]) << dw);
-      w2 = dw + t[kDistNextra + ds];
+    if (member < 0 || (mb != member && table_stride != 0)) {
+      if (member >= 0) __syncthreads();     // the old entries are read
+      build_entries(tables + mb * table_stride, f1, f2);
+      __syncthreads();
     }
-    f1v[i] = v1;
-    f1w[i] = w1;
-    f2v[i] = v2;
-    f2w[i] = w2;
+    member = mb;
+    const int64_t live_end =
+        n_tokens == nullptr ? hi : min(hi, static_cast<int64_t>(
+                                               max(__ldg(n_tokens + mb), 0)));
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < kFieldGroups; ++k) {
+        const int64_t s = lo + 4 * (threadIdx.x + k * kFieldThreads);
+        if (s >= hi) continue;
+        const Fields x = field_slot(av[k].x, bv[k].x, s < live_end, f1, f2);
+        const Fields y = field_slot(av[k].y, bv[k].y, s + 1 < live_end, f1,
+                                    f2);
+        const Fields z = field_slot(av[k].z, bv[k].z, s + 2 < live_end, f1,
+                                    f2);
+        const Fields w = field_slot(av[k].w, bv[k].w, s + 3 < live_end, f1,
+                                    f2);
+        __stcs(reinterpret_cast<int4*>(f1v + row + s),
+               make_int4(x.v1, y.v1, z.v1, w.v1));
+        __stcs(reinterpret_cast<int4*>(f1w + row + s),
+               make_int4(x.w1, y.w1, z.w1, w.w1));
+        __stcs(reinterpret_cast<int4*>(f2v + row + s),
+               make_int4(x.v2, y.v2, z.v2, w.v2));
+        __stcs(reinterpret_cast<int4*>(f2w + row + s),
+               make_int4(x.w2, y.w2, z.w2, w.w2));
+      }
+    } else {
+      for (int64_t s = lo + threadIdx.x; s < hi; s += kFieldThreads) {
+        const Fields f = field_slot(__ldg(a + row + s), __ldg(b + row + s),
+                                    s < live_end, f1, f2);
+        f1v[row + s] = f.v1;
+        f1w[row + s] = f.w1;
+        f2v[row + s] = f.v2;
+        f2w[row + s] = f.w2;
+      }
+    }
   }
 }
 
@@ -246,18 +364,63 @@ extern "C" int lf_hist_info(void* out) {
       &o[4], token_hist_kernel, kHistThreads, 0));
 }
 
+// a, b, the outputs: n_members x m int32; tables: n_members rows of
+// kTables int32 table_stride apart (0: one row for all); n_tokens: null
+// or n_members int32.
 extern "C" int lf_token_fields(const void* a, const void* b,
-                               const void* tables, int64_t n_slots, void* f1v,
-                               void* f1w, void* f2v, void* f2w,
-                               void* stream) {
-  if (n_slots <= 0) return 0;
-  int64_t blocks = (n_slots + kFieldThreads - 1) / kFieldThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
+                               const void* tables, int table_stride,
+                               const void* n_tokens, int n_members,
+                               int64_t m, void* f1v, void* f1w, void* f2v,
+                               void* f2w, void* stream) {
+  if (n_members <= 0 || m <= 0) return 0;
+  if (table_stride != 0 && table_stride != kTables)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int max_blocks = 0;
+  if (max_blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, token_fields_kernel, kFieldThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    max_blocks = sms * per_sm;
+  }
+  const bool vec = m % 4 == 0
+                   && ((reinterpret_cast<uintptr_t>(a)
+                        | reinterpret_cast<uintptr_t>(b)
+                        | reinterpret_cast<uintptr_t>(f1v)
+                        | reinterpret_cast<uintptr_t>(f1w)
+                        | reinterpret_cast<uintptr_t>(f2v)
+                        | reinterpret_cast<uintptr_t>(f2w)) & 15) == 0;
+  const int64_t tiles_per_member = (m + kFieldTile - 1) / kFieldTile;
+  const int64_t n_tiles = tiles_per_member * n_members;
+  const int64_t blocks = n_tiles < max_blocks ? n_tiles : max_blocks;
   token_fields_kernel<<<static_cast<int>(blocks), kFieldThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
-      static_cast<const int32_t*>(tables), n_slots,
-      static_cast<int32_t*>(f1v), static_cast<int32_t*>(f1w),
+      static_cast<const int32_t*>(tables), table_stride,
+      static_cast<const int32_t*>(n_tokens), m, tiles_per_member, n_tiles,
+      vec, static_cast<int32_t*>(f1v), static_cast<int32_t*>(f1w),
       static_cast<int32_t*>(f2v), static_cast<int32_t*>(f2w));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fields kernel as compiled: out[0..6] = registers, static shared
+// bytes, spill bytes, dynamic shared bytes (0), resident blocks per SM,
+// threads per block, slots a tile.
+extern "C" int lf_fields_info(void* out) {
+  int* o = static_cast<int*>(out);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, token_fields_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  o[0] = fa.numRegs;
+  o[1] = static_cast<int>(fa.sharedSizeBytes);
+  o[2] = static_cast<int>(fa.localSizeBytes);
+  o[3] = 0;
+  o[5] = kFieldThreads;
+  o[6] = kFieldTile;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &o[4], token_fields_kernel, kFieldThreads, 0));
 }

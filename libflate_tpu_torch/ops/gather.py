@@ -8,9 +8,12 @@ flat (B, R) row.  :func:`gather_two` (``gather_two``, ``:163-214``, kernel
 ``_gather2_kernel``), the two-table windowed gather, keeps the reference's
 (B, R, 128) layout, because its window rule is defined on 8-row groups of
 it; nothing in the reference or the port calls it on a path.  Both
-kernels are in ``csrc/gather.cu``, each beside its plain PyTorch version.
+kernels are in ``csrc/gather.cu``, each beside its plain PyTorch version;
+:func:`kernel_info` gives how ``gather_two`` compiled.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -105,7 +108,10 @@ def gather_two(tab_a: torch.Tensor, tab_b: torch.Tensor, idx: torch.Tensor,
         return gather_two_plain(tab_a, tab_b, idx, lo_rows, win)
     if tab_a.device.type != "cuda":
         raise ValueError(f"gather_two: unsupported device {tab_a.device}")
-    ta, tb, ix, lo = (t.contiguous() for t in (tab_a, tab_b, idx, lo_rows))
+    # the kernel stages tables and reads indices 16 bytes at a time
+    ta, tb, ix = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (x.contiguous() for x in (tab_a, tab_b, idx)))
+    lo = lo_rows.contiguous()
     out_a, out_b = torch.empty_like(ix), torch.empty_like(ix)
     _build.launch("lf_gather_two", ta.data_ptr(), tb.data_ptr(),
                   ix.data_ptr(), lo.data_ptr(), out_a.data_ptr(),
@@ -115,3 +121,20 @@ def gather_two(tab_a: torch.Tensor, tab_b: torch.Tensor, idx: torch.Tensor,
 
 
 gather_two.launches = 0
+
+
+def kernel_info(kernel: str = "gather_two", win: int = 16) -> dict:
+    """``gather_two`` as compiled for a window of ``win`` rows: registers,
+    static shared, spill and dynamic shared bytes, resident blocks per
+    SM, threads per block, whether the window is staged in shared memory
+    (else each entry loads from the tables) and the largest staged
+    window."""
+    if kernel != "gather_two":
+        raise ValueError(f"gather.kernel_info: no info for {kernel!r}")
+    out = (ctypes.c_int * 8)()
+    err = _build.load().lf_gather_two_info(win, out)
+    if err != 0:
+        raise RuntimeError(f"lf_gather_two_info failed with error {err}")
+    return dict(zip(("regs", "static_smem", "spill_bytes", "dynamic_smem",
+                     "blocks_per_sm", "threads", "staged", "max_staged_win"),
+                    out))

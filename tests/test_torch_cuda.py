@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import strip_sync_index
+from chip_smoke import member_codes, strip_sync_index
 from libflate_tpu_torch.formats import pgzf
 from libflate_tpu_torch.ops import (decode, deflate_decode, deflate_encode,
                                     device_expand, expand, fields, gather,
@@ -746,6 +746,91 @@ def test_hist_kernel_unaligned_views_match_plain(dev, offsets):
     _eq(hist.token_hist(*views), hist.token_hist_plain(*views))
 
 
+
+def _fields_case(dev, bsz: int, m: int, seed: int, deflate_tables=True):
+    """Tokens with holes, out-of-range lengths and distances, per-member
+    counts 0 / below M / M, and random tables in DEFLATE's ranges (one
+    row a member, and the first row alone as the shared table)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 256, (bsz, m))
+    b = np.where(rng.random((bsz, m)) < 0.4, rng.integers(1, 32769, (bsz, m)),
+                 0)
+    a = np.where(b > 0, rng.integers(3, 259, (bsz, m)), a)
+    a[rng.random((bsz, m)) < 0.1] = -1
+    wild = rng.random((bsz, m)) < 0.05
+    a[wild] = rng.integers(-600, 600, int(wild.sum()))
+    b[wild] = rng.integers(-40000, 40000, int(wild.sum()))
+    a.reshape(-1)[:6] = [0, 2, 258, 259, 255, 256]
+    b.reshape(-1)[:6] = [1, 32768, 40000, 5, 0, -7]
+    nt = rng.integers(0, m + 1, bsz)
+    nt[:3] = [m, 0, m // 3][:bsz]
+    lit_w = rng.integers(0, 16, (bsz, 288))
+    dist_w = rng.integers(0, 16, (bsz, 30))
+    lit_rev = rng.integers(0, 1 << 15, (bsz, 288))
+    dist_rev = rng.integers(0, 1 << 15, (bsz, 30))
+    per = fields.field_tables(lit_rev, lit_w, dist_rev, dist_w, dev)
+    t = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (a, b, nt)]
+    return t[0], t[1], t[2], per
+
+
+@pytest.mark.parametrize("bsz,m", [(1, 4096), (1, 8191), (3, 2050),
+                                   (130, 6000), (128, 49152)])
+@pytest.mark.parametrize("form", ["shared", "shared_counts", "per_member",
+                                  "per_member_counts"])
+def test_fields_kernel_forms_match_plain(dev, bsz, m, form):
+    """The shared (N_TABLE,) and per-member (B, N_TABLE) tables, with and
+    without counts; M % 4 != 0 takes the scalar path; B = 1; the encode's
+    128 x 49152."""
+    a, b, nt, per = _fields_case(dev, bsz, m, seed=bsz + m)
+    tables = per if form.startswith("per_member") else per[0]
+    counts = nt if form.endswith("counts") else None
+    got = fields.token_fields(a, b, tables, counts)
+    for x, y in zip(got, fields.token_fields_plain(a, b, tables, counts)):
+        _eq(x, y)
+    if counts is not None:
+        past = (torch.arange(m, device=dev)[None, :]
+                >= counts.to(torch.int64)[:, None])
+        assert not got[1][past].any() and not got[3][past].any()
+
+
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 3), (2, 2), (4, 4)])
+@pytest.mark.parametrize("per_member", [False, True])
+def test_fields_kernel_unaligned_views_match_plain(dev, offsets, per_member):
+    """a and b as views off a 16-byte boundary: the scalar path; offsets
+    of 4 slots keep the vector path."""
+    bsz, m = 5, 3000
+    a, b, nt, per = _fields_case(dev, bsz, m + 4, seed=7)
+    views = [t.reshape(-1)[o:o + bsz * m].view(bsz, m)
+             for t, o in zip((a, b), offsets)]
+    tables = per if per_member else per[0]
+    counts = nt.clamp(max=m) if per_member else None
+    got = fields.token_fields(*views, tables, counts)
+    for x, y in zip(got, fields.token_fields_plain(*views, tables, counts)):
+        _eq(x, y)
+
+
+def test_fields_kernel_per_member_tables_at_the_encode_batch(enc_batch):
+    """Each member's own package-merge tables from its own histogram, and
+    its count of valid slots, on the tokens of a real batch compacted to
+    a prefix (the generic engine's form)."""
+    blocks, nv = enc_batch
+    a, b, valid, _cnt, _ovf = pipeline.tokenize(blocks, nv)
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    a_c, b_c = (torch.gather(x, 1, order) for x in (a, b))
+    nt = valid.sum(dim=1).to(torch.int32)
+    tables = fields.field_tables(*member_codes(a_c, b_c, nt), blocks.device)
+    got = fields.token_fields(a_c, b_c, tables, nt)
+    for x, y in zip(got, fields.token_fields_plain(a_c, b_c, tables, nt)):
+        _eq(x, y)
+    assert int((got[1] > 0).sum()) == int(nt.sum())
+
+
+def test_fields_kernel_info(dev):
+    info = fields.kernel_info()
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 4
+    assert info["tile_slots"] == info["threads"] * 16
+    assert info["static_smem"] >= (256 + 259 + 30) * 4
+
 def _pack_widths(kind: str, bsz: int, f: int, g) -> torch.Tensor:
     dev = g.device
     w = torch.randint(-3, 33, (bsz, f), generator=g, device=dev,
@@ -1436,3 +1521,63 @@ def test_gather_two_kernel_matches_plain(dev, rows, n):
     got = gather.gather_two(*tabs, idx, lo, win=win)
     for x, y in zip(got, gather.gather_two_plain(*tabs, idx, lo, win=win)):
         _eq(x, y)
+
+
+def _gather_two_case(dev, bsz, rows, n, win, seed):
+    """Windows at random 8-row starts, and at 0 and R - win; indices one
+    to three rows either side of the window, negative ones, ones past the
+    table and lo_rows beyond [0, R - win] (the hit test uses lo as given,
+    the rows are read from lo clamped)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tabs = [torch.randint(-2**31, 2**31 - 1, (bsz, rows, 128), generator=g,
+                          device=dev, dtype=torch.int64).int()
+            for _ in range(2)]
+    lo = (torch.randint(0, (rows - win) // 8 + 1, (bsz, n // 8), generator=g,
+                        device=dev) * 8).int()
+    lo[:, 0], lo[:, -1] = 0, rows - win
+    if n >= 32:
+        lo[:, 1], lo[:, 2], lo[:, 3] = -8, rows - win + 8, -2**31
+    idx = ((lo.to(torch.int64).repeat_interleave(8, dim=1)[:, :, None]
+            + torch.randint(-3, win + 3, (bsz, n, 128), generator=g,
+                            device=dev)) * 128
+           + torch.randint(0, 128, (bsz, n, 128), generator=g, device=dev))
+    idx = idx.clamp(-2**31, 2**31 - 1).int()
+    idx[0, 0, :4] = torch.tensor([-1, -129, rows * 128, 2**31 - 1],
+                                 device=dev)
+    return (*tabs, idx, lo)
+
+
+@pytest.mark.parametrize("rows,n,win", [(8, 8, 8), (64, 64, 8),
+                                        (64, 128, 16), (512, 512, 16),
+                                        (512, 64, 64), (128, 64, 128),
+                                        (512, 32, 512)])
+@pytest.mark.parametrize("bsz", [1, 3])
+def test_gather_two_kernel_windows_match_plain(dev, bsz, rows, n, win):
+    """Windows staged in shared memory (8, 16, 64 rows) and too large to
+    stage (win = R: direct loads); R = 8."""
+    args = _gather_two_case(dev, bsz, rows, n, win, seed=rows + n + win)
+    got = gather.gather_two(*args, win=win)
+    for x, y in zip(got, gather.gather_two_plain(*args, win=win)):
+        _eq(x, y)
+    assert bool((got[0] != 0).any())
+
+
+@pytest.mark.parametrize("win", [16, 128])
+def test_gather_two_kernel_unaligned_views(dev, win):
+    """Tables and indices that start 4 bytes past a 16-byte boundary are
+    copied to aligned memory before the launch."""
+    ta, tb, idx, lo = _gather_two_case(dev, 2, 128, 64, win, seed=win)
+    views = [_unaligned(t) for t in (ta, tb, idx)]
+    got = gather.gather_two(*views, lo, win=win)
+    for x, y in zip(got, gather.gather_two_plain(ta, tb, idx, lo, win=win)):
+        _eq(x, y)
+
+
+def test_gather_two_kernel_info(dev):
+    staged = gather.kernel_info("gather_two", 16)
+    direct = gather.kernel_info("gather_two", 128)
+    assert staged["staged"] == 1 and direct["staged"] == 0
+    assert staged["dynamic_smem"] == 2 * 16 * 128 * 4
+    assert staged["max_staged_win"] == 64
+    for info in (staged, direct):
+        assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 4

@@ -9,6 +9,11 @@ reference.
   called as ``_shared_tokens_xla`` calls it (``token_fields_pallas``
   passes no interpret flag, so it cannot run on the CPU), hole slots
   included.
+* The per-member form (one table row a member, token counts) against
+  ``token_fields_pallas`` itself, its ``pl.pallas_call`` forced into
+  interpret mode, at 3 x 2048 slots with each member's own package-merge
+  tables; ``field_tables``' range checks and ``convert``'s per-member
+  tables.
 """
 import numpy as np
 import pytest
@@ -138,3 +143,121 @@ def test_token_fields_match_reference_with_holes():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (got[1][~tv] == 0).all() and (got[3][~tv] == 0).all()
     assert int(got[1].max()) <= 10 + 5 and int(got[3].max()) <= 8 + 13
+
+
+# ---- the per-member form: per-member tables and token counts --------------
+
+PB, PM = 3, 2048
+
+
+def _per_member_tokens():
+    """Three members of 2048 slots: counts M, below M and 0, holes
+    (a = -1) inside and past the counts, matches of every length corner."""
+    rng = np.random.default_rng(12)
+    is_m = rng.random((PB, PM)) < 0.4
+    a = np.where(is_m, rng.integers(3, 259, (PB, PM)),
+                 rng.integers(0, 256, (PB, PM)))
+    b = np.where(is_m, rng.integers(1, 32769, (PB, PM)), 0)
+    a[:, :4], b[:, :4] = [3, 258, 257, 65], [1, 32768, 4, 0]
+    a[rng.random((PB, PM)) < 0.05] = -1
+    a[1, 1500:1510] = -1                      # holes past the count
+    n_tokens = np.array([PM, 1203, 0])
+    return a.astype(np.int32), b.astype(np.int32), n_tokens.astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def ref_per_member():
+    """The reference's ``token_fields_pallas`` (Pallas interpret mode) with
+    each member's tables built as ``_fields_batch_pallas`` builds them."""
+    from jax.experimental import pallas as pl
+
+    import libflate_tpu.ops.pallas_fields as pf
+    from libflate_tpu.ops.deflate_encode import (_encoder_tables,
+                                                 token_histograms_jax)
+    from libflate_tpu.ops.huffman import package_merge_lengths as pm_jax
+    a, b, nt = _per_member_tokens()
+    lit_f, dist_f = jax.vmap(token_histograms_jax)(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(nt))
+    lit_rev, lit_w = jax.vmap(_encoder_tables)(
+        jax.vmap(lambda f: pm_jax(f, 15))(lit_f))
+    dist_rev, dist_w = jax.vmap(_encoder_tables)(
+        jax.vmap(lambda f: pm_jax(f, 15))(dist_f))
+    lit_rev288 = jnp.pad(lit_rev, ((0, 0), (0, 2)))
+    lit_w288 = jnp.pad(lit_w, ((0, 0), (0, 2)))
+
+    def interpret(*args, **kw):
+        return orig(*args, **{**kw, "interpret": True})
+
+    orig = pl.pallas_call
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pf.pl, "pallas_call", interpret)
+        want = pf.token_fields_pallas.__wrapped__(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(nt), lit_rev288,
+            lit_w288, dist_rev, dist_w)
+    tabs = dict(lit_rev=lit_rev, lit_w=lit_w, dist_rev=dist_rev,
+                dist_w=dist_w)
+    return ((a, b, nt), {k: np.asarray(v) for k, v in tabs.items()},
+            [np.asarray(w) for w in want])
+
+
+def test_token_fields_per_member_match_reference(ref_per_member):
+    (a, b, nt), tabs, want = ref_per_member
+    assert tabs["lit_rev"].shape == (PB, 286)
+    t = convert.from_reference_batch(dict(a=a, b=b, n_tokens=nt, **tabs))
+    assert t["tables"].shape == (PB, fields.N_TABLE)
+    got = fields.token_fields(t["a"], t["b"], t["tables"], t["n_tokens"])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    # the count and the holes both mask: member 2 is empty, member 1
+    # stops at its count
+    assert not got[1][2].any() and not got[1][1, 1203:].any()
+    assert int((got[1] > 0).sum()) == int(((a >= 0) & (
+        np.arange(PM)[None, :] < nt[:, None])).sum())
+
+
+def test_token_fields_per_member_rows_are_the_shared_form(ref_per_member):
+    """Row k of the per-member operand gives member k what the shared
+    operand built from member k's tables gives it."""
+    (a, b, nt), tabs, _want = ref_per_member
+    t = convert.from_reference_batch(dict(a=a, b=b, n_tokens=nt, **tabs))
+    got = fields.token_fields(t["a"], t["b"], t["tables"])
+    for k in range(PB):
+        row = fields.field_tables(*(tabs[n][k] for n in (
+            "lit_rev", "lit_w", "dist_rev", "dist_w")), "cpu")
+        torch.testing.assert_close(t["tables"][k], row, rtol=0, atol=0)
+        shared = fields.token_fields(t["a"][k], t["b"][k], row)
+        for g, s in zip(got, shared):
+            torch.testing.assert_close(g[k], s, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("which,value", [("lit_w", 16), ("dist_w", 99),
+                                         ("lit_w", -1), ("lit_rev", 1 << 15),
+                                         ("dist_rev", -3)])
+def test_field_tables_refuse_codes_outside_deflate(which, value):
+    """The kernel's merged entries hold widths <= 15 and codes < 2**15;
+    a table outside that is refused before any upload, shared or per
+    member."""
+    tabs = {"lit_rev": np.zeros((2, 288), np.int32),
+            "lit_w": np.full((2, 288), 8, np.int32),
+            "dist_rev": np.zeros((2, 30), np.int32),
+            "dist_w": np.full((2, 30), 5, np.int32)}
+    tabs[which][1, 7] = value
+    order = ("lit_rev", "lit_w", "dist_rev", "dist_w")
+    with pytest.raises(ValueError):
+        fields.field_tables(*(tabs[k] for k in order), "cpu")
+    with pytest.raises(ValueError):
+        fields.field_tables(*(tabs[k][1] for k in order), "cpu")
+    fields.field_tables(*(tabs[k][0] for k in order), "cpu")
+
+
+def test_token_fields_refuse_mismatched_forms():
+    a = torch.zeros((3, 8), dtype=torch.int32)
+    shared = fields.field_tables(np.zeros(288), np.ones(288), np.zeros(30),
+                                 np.ones(30), "cpu")
+    with pytest.raises(ValueError):           # a row a member, 2 rows
+        fields.token_fields(a, a, shared[None].expand(2, -1))
+    with pytest.raises(ValueError):           # counts of the wrong length
+        fields.token_fields(a, a, shared, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):           # counts need (B, M) tokens
+        fields.token_fields(a[0], a[0], shared,
+                            torch.zeros(1, dtype=torch.int32))
