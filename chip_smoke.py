@@ -7,7 +7,7 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
    no CUDA means exit 1 before anything runs;
-2. build the eleven CUDA sources from ``libflate_tpu_torch/csrc`` with
+2. build the twelve CUDA sources from ``libflate_tpu_torch/csrc`` with
    one nvcc per source, all at once, for sm_90a, and the host token
    decoder (``libflate_tpu_torch/native``) with g++; print the sort
    matcher's and the parse's registers, shared memory and resident
@@ -39,6 +39,28 @@ Phases, each of which raises on failure (exit code != 0):
    one threaded batch), each equal to ``gzip.decompress`` with every CRC
    checked; rank and resolve launched, the sync and speculative kernels
    not;
+   5d. ``decode_symbols`` (the generic decode, ``csrc/inflate.cu``)
+   against its plain version, all five outputs bit-identical, on
+   ``decode_hard_cases`` (a table hole, an incomplete code, the fixed
+   code's 286 / 287, an empty final block, streams cut at max_tokens,
+   start bits off the word, random words under any-int32 tables) and on
+   64 members of the generic shard (the 64 MiB as 1024 LF-indexed
+   members of zlib level-9 bodies) at full width;
+   5e. the sync kernel's debug-checks form against its plain version on
+   the decode shard (no mark, the default kernel's tokens) and on the
+   shard with its first LS index poisoned (``poison_ls``: marked as the
+   plain version marks); ``decompress`` with ``LIBFLATE_DEBUG_CHECKS=1``
+   decodes the clean shard through the debug form (counted), raises
+   DeflateError on the poisoned one, and decodes the reference test's
+   flipped delta by the next branch;
+   5f. ``decompress(verify=True, device="cuda")`` of the sync shard, the
+   stripped shard, the generic shard (all 1024 members through one
+   ``decode_symbols`` launch), the 1024 stdlib-gzip members and
+   ``pgzf_encode_small.pgz``, each equal to gzip, counted, with the
+   branches tried, the host clock (median of 3) and the peak device
+   memory; ``decode_symbols``' time inside the generic branch;
+   5g. ``inflate_device`` on 1 MiB of raw DEFLATE in memLevel-1 blocks
+   and on a dynamic block followed by a stored block, equal to zlib;
 6. encode input: that 64 MiB plaintext, 8 batches of 128 members of
    64 KiB; each encode kernel against its plain version on the card at
    the first batch's full shapes (128 x 65536), bit-exact;
@@ -82,7 +104,10 @@ Phases, each of which raises on failure (exit code != 0):
    position decode's, chunk exits' and walk's bounds (the walk's from the
    32-byte sectors its visits touch) and half marks; the
    sync, speculative and foreign decode chains, the chains of the three
-   encode modes) and on the host clock (the end-to-end calls, host staging
+   encode modes; ``decode_symbols`` at 1024 generic members, alone, with
+   its bytes bound and its latency bound (the longest stream's dependent
+   table loads times one dependent L2 load, measured by a one-thread
+   chase); the debug form) and on the host clock (the end-to-end calls, host staging
    and the foreign path's host token decode split out), each with the
    card's name and power limit.
 
@@ -104,6 +129,7 @@ import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import torch
 
@@ -156,6 +182,149 @@ def strip_sync_index(stream: bytes) -> bytes:
         struct.pack_into("<I", member, pgzf._SIZE_OFFSET, len(member))
         out += member
     return bytes(out)
+
+
+def lf_member(body: bytes, plain: bytes) -> bytes:
+    """A PGZF member: the port's LF-indexed header, ``body`` and the CRC /
+    ISIZE trailer of ``plain``."""
+    from libflate_tpu_torch.formats import pgzf
+    member = bytearray(pgzf._member_header(0)) + body
+    member += struct.pack("<II", zlib.crc32(plain), len(plain))
+    struct.pack_into("<I", member, pgzf._SIZE_OFFSET, len(member))
+    return bytes(member)
+
+
+def generic_shard(plain: bytes, member: int = 65536) -> bytes:
+    """``plain`` as LF-indexed members of ``member`` bytes, each body a raw
+    DEFLATE stream of ``zlib.compressobj(9, DEFLATED, -15)`` (the bodies
+    stdlib ``gzip.compress`` writes): per-member tables, no LS index, the
+    stream that ``pgzf.decompress``'s generic branch takes."""
+    out = []
+    for i in range(0, len(plain), member):
+        c = zlib.compressobj(9, zlib.DEFLATED, -15)
+        chunk = plain[i:i + member]
+        out.append(lf_member(c.compress(chunk) + c.flush(), chunk))
+    return b"".join(out)
+
+
+def poison_ls(stream: bytes) -> bytes:
+    """``stream`` with its first member's LS index claiming K = 1024 tokens
+    a chunk (and as many tokens as keeps its chunk count): every chunk
+    then decodes four real chunks, and its cursor leaves the window the
+    reference stages for it, which the sync kernel's debug-checks form
+    marks.  (Flipping the high byte of the first delta, as the
+    reference's own test does, leaves a start past the body: both sides
+    drop the sync branch with ImportError before decoding.)"""
+    ls = stream.find(b"LS") + 4
+    n_chunks = struct.unpack_from("<H", stream, ls + 12)[0]
+    out = bytearray(stream)
+    struct.pack_into("<HI", out, ls + 2, 1024, 1024 * n_chunks)
+    return bytes(out)
+
+
+def _bit_words(fields, shift: int = 0):
+    """(little-endian int32 words of the fields, LSB first, after
+    ``shift`` zero bits, with 2 zero words after them; their bit count)."""
+    import numpy as np
+    v, n = 0, shift
+    for value, width in fields:
+        v |= value << n
+        n += width
+    raw = v.to_bytes(-(-n // 32) * 4 + 8, "little")
+    return np.frombuffer(raw, "<i4").copy(), n
+
+
+def _fixed_code(sym: int):
+    """The fixed litlen code of ``sym`` as an LSB-first field."""
+    if sym < 144:
+        code, width = 0x30 + sym, 8
+    elif sym < 256:
+        code, width = 0x190 + sym - 144, 9
+    elif sym < 280:
+        code, width = sym - 256, 7
+    else:
+        code, width = 0xC0 + sym - 280, 8
+    return int(f"{code:0{width}b}"[::-1], 2), width
+
+
+def decode_hard_cases():
+    """Inputs on which ``decode_symbols`` and its plain version must agree
+    bit for bit: name -> (words (B, W) int32, start_bit (B,) int32,
+    litlen and distance code lengths (B, 288), (B, 30) or None for the
+    tables given, tables or None, max_tokens, chunk).  numpy, from fixed
+    seeds."""
+    import numpy as np
+    from libflate_tpu_torch.serial.deflate import parse_block_headers
+    rng = np.random.default_rng(13)
+    vocab = [bytes(rng.integers(97, 123, rng.integers(3, 9), np.uint8))
+             for _ in range(300)]
+    texts = [b" ".join(vocab[i] for i in rng.integers(0, 300, n // 5))[:n]
+             for n in (2048, 5000, 8192, 3000)]
+    bodies = []
+    for t in texts:
+        c = zlib.compressobj(9, zlib.DEFLATED, -15)
+        bodies.append(c.compress(t) + c.flush())
+    lit, dist, starts, _flags = parse_block_headers(bodies)
+    w = max(len(b) for b in bodies) // 4 + 8
+    rows = np.zeros((len(bodies), 4 * w), np.uint8)
+    for i, b in enumerate(bodies):
+        rows[i, :len(b)] = np.frombuffer(b, np.uint8)
+    zl = (rows.view("<i4"), starts.astype(np.int32), lit, dist, None, 9000,
+          4096)
+    cases = {"zlib bodies": zl,
+             "cut at max_tokens, chunked": zl[:5] + (300, 4096),
+             "cut at max_tokens, one chunk": zl[:5] + (300, 300)}
+    # the same bodies shifted by 13 bits: no start bit word-aligned
+    shifted = np.zeros((len(bodies), 4 * w + 4), np.uint8)
+    for i, b in enumerate(bodies):
+        v = int.from_bytes(b, "little") << 13
+        shifted[i, :len(b) + 2] = np.frombuffer(
+            v.to_bytes(len(b) + 2, "little"), np.uint8)
+    cases["start bits off the word"] = (shifted.view("<i4"),
+                                        starts.astype(np.int32) + 13,
+                                        lit, dist, None, 9000, 4096)
+    # a table hole: the most common literal's entries zeroed (width 0)
+    from libflate_tpu_torch.ops.huffman import tables_from_lengths
+    import torch
+    lt, dt = tables_from_lengths(torch.from_numpy(lit), torch.from_numpy(dist))
+    lt = lt.numpy().copy()
+    lt[(lt >> 4) == ord("e")] = 0
+    cases["table hole"] = (zl[0], zl[1], None, None, (lt, dt.numpy()),
+                           9000, 4096)
+    # fixed blocks: 286 and 287 (length 258, no extra bits), a literal,
+    # a distance with extra bits, the EOB; an empty final block
+    def dcode(n):                       # a fixed 5-bit distance code
+        return int(f"{n:05b}"[::-1], 2), 5
+
+    fields = [(1, 1), (1, 2), _fixed_code(97), _fixed_code(286), dcode(0),
+              _fixed_code(287), dcode(3), _fixed_code(257), dcode(5),
+              (1, 1), _fixed_code(98), _fixed_code(256)]
+    fx, _ = _bit_words(fields, 5)
+    em, _ = _bit_words([(1, 1), (1, 2), _fixed_code(256)])
+    fw = max(len(fx), len(em))
+    fixed_words = np.zeros((2, fw), np.int32)
+    fixed_words[0, :len(fx)], fixed_words[1, :len(em)] = fx, em
+    fl = np.zeros((2, 288), np.int32)
+    fl[:] = [8] * 144 + [9] * 112 + [7] * 24 + [8] * 8
+    cases["fixed code: 286 / 287, empty final block"] = (
+        fixed_words, np.array([8, 3], np.int32), fl,
+        np.full((2, 30), 5, np.int32), None, 64, 4096)
+    # an incomplete code (only 'a', 'b' and the EOB: one code word free)
+    # read on random bits, and random words under any-int32 tables
+    inc = np.zeros((3, 288), np.int32)
+    inc[:, [97, 98, 256]] = [1, 2, 3]
+    rnd = rng.integers(-2**31, 2**31 - 1, (3, 40), dtype=np.int64).astype(
+        np.int32)
+    cases["incomplete code"] = (rnd, np.array([0, 7, 100], np.int32), inc,
+                                np.full((3, 30), 5, np.int32), None, 400,
+                                128)
+    any_tabs = tuple(rng.integers(-2**31, 2**31 - 1, (2, 1 << 15),
+                                  dtype=np.int64).astype(np.int32)
+                     for _ in range(2))
+    cases["random words, any-int32 tables, table_idx"] = (
+        rnd, np.array([0, 31, 600], np.int32), None, None,
+        any_tabs + (np.array([1, 0, 1], np.int32),), 300, 100)
+    return cases
 
 
 def card() -> str:
@@ -547,6 +716,234 @@ def main() -> None:
             f"stdlib gzip, {rows.shape[0]} member CRCs verified")
     del rows, live_
 
+    # 5d. decode_symbols against its plain version: the hard cases, and 64
+    # members of the generic shard at full width (64 KiB members)
+    from libflate_tpu_torch.ops.huffman import tables_from_lengths
+    from libflate_tpu_torch.serial.deflate import DeflateError, \
+        parse_block_headers
+    t = time.perf_counter()
+    generic = generic_shard(oracle)
+    gen_refs = pgzf.index_members(generic)
+    log(f"generic input: {len(oracle)} bytes as {len(gen_refs)} "
+        f"LF-indexed members of zlib level-9 bodies -> {len(generic)} bytes, "
+        f"written in {time.perf_counter() - t:.2f} s")
+    gen_bodies = [generic[r.body:r.end - 8] for r in gen_refs]
+    g_lit, g_dist, g_starts, g_flags = parse_block_headers(gen_bodies)
+    if not (g_flags == 5).all() or int(g_lit.max()) > 15:
+        raise AssertionError("a generic member is not one final dynamic "
+                             "block")
+    g_words = torch.zeros((len(gen_bodies), 4 * (65536 // 4 + 512)),
+                          dtype=torch.uint8)
+    for i, b_ in enumerate(gen_bodies):
+        g_words[i, :len(b_)] = torch.frombuffer(bytearray(b_),
+                                                dtype=torch.uint8)
+    g_lt, g_dt = tables_from_lengths(torch.from_numpy(g_lit).to(dev),
+                                     torch.from_numpy(g_dist).to(dev))
+    ds_args = (g_words.view(torch.int32).to(dev),
+               torch.from_numpy(g_starts.astype("int32")).to(dev), g_lt,
+               g_dt, 65538)
+    ds_err = 0
+    for what, case in decode_hard_cases().items():
+        w_, sb_, lit_, dist_, tabs_, mt_, ch_ = case
+        if tabs_ is None:
+            lt_, dt_ = tables_from_lengths(torch.from_numpy(lit_).to(dev),
+                                           torch.from_numpy(dist_).to(dev))
+            ti_ = None
+        else:
+            lt_, dt_ = (torch.from_numpy(x).to(dev) for x in tabs_[:2])
+            ti_ = (torch.from_numpy(tabs_[2]).to(dev) if len(tabs_) > 2
+                   else None)
+        hargs = (torch.from_numpy(w_).to(dev), torch.from_numpy(sb_).to(dev),
+                 lt_, dt_, mt_, ch_, ti_)
+        got = deflate_decode.decode_symbols(*hargs)
+        want = deflate_decode.decode_symbols_plain(*hargs)
+        e_ = max(max_abs_err(x, y) for x, y in zip(got, want))
+        log(f"decode_symbols vs plain, hard case {what}: max_abs_err {e_} "
+            f"(n_tokens {got[2].tolist()}, err {got[4].tolist()})")
+        ds_err = max(ds_err, e_)
+    sub = tuple(x[:64] for x in ds_args[:4]) + (65538,)
+    got = deflate_decode.decode_symbols(*sub)
+    want = deflate_decode.decode_symbols_plain(*sub)
+    e_ = max(max_abs_err(x, y) for x, y in zip(got, want))
+    log(f"decode_symbols vs plain at 64 generic members x "
+        f"{sub[0].shape[1]} words, max_tokens 65538: max_abs_err {e_} "
+        f"(tokens {int(got[2].sum())}, errors {int(got[4].sum())})")
+    ds_err = max(ds_err, e_)
+    errs[kname(deflate_decode.decode_symbols)] = ds_err
+    if ds_err or bool(got[4].any()):
+        raise AssertionError("decode_symbols disagrees with its plain "
+                             "version or failed on a generic member")
+    log(f"inflate.cu decode_symbols: {json.dumps(deflate_decode.kernel_info())}"
+        f" [{card_line}]")
+    del got, want, sub
+
+    # 5e. the sync kernel's debug-checks form against its plain version on
+    # the decode shard: no mark on the clean stream, the default kernel's
+    # tokens; a poisoned LS index marked and refused by decompress
+    dbg_args = sd_args
+    dbg = sd.sync_decode(*dbg_args, debug=True, d_words=g["d_words"])
+    dbg_p = sd.sync_decode_plain(*dbg_args, debug=True, d_words=g["d_words"])
+    dbg_name = kname(sd.sync_decode) + "[debug]"
+    errs[dbg_name] = max_abs_err(dbg, dbg_p)
+    n_marked = int(((dbg & sd.DEBUG_POISON) != 0).sum())
+    if errs[dbg_name] or n_marked or not torch.equal(dbg, toks):
+        raise AssertionError(f"debug form: max_abs_err {errs[dbg_name]}, "
+                             f"{n_marked} marks on the clean shard")
+    bad_stream = poison_ls(stream)
+    bg = pgzf._prepare_sync_device(bad_stream, dev)[0]
+    bad_args = (bg["words"], bg["start_bits"], bg["counts"], bg["lit_t"],
+                bg["dist_t"], bg["k_tok"], bg["root_bits"])
+    bad_tok = sd.sync_decode(*bad_args, debug=True, d_words=bg["d_words"])
+    bad_err = max_abs_err(bad_tok, sd.sync_decode_plain(
+        *bad_args, debug=True, d_words=bg["d_words"]))
+    bad_marks = int(((bad_tok & sd.DEBUG_POISON) != 0).sum())
+    errs[dbg_name] = max(errs[dbg_name], bad_err)
+    log(f"sync_decode debug form vs plain: clean shard (d_words "
+        f"{g['d_words']}) max_abs_err 0, 0 marks, tokens equal to the "
+        f"default kernel's; first member's LS index at K=1024 (d_words "
+        f"{bg['d_words']}): max_abs_err {bad_err}, {bad_marks} tokens marked "
+        f"in {int(((bad_tok & sd.DEBUG_POISON) != 0).any(dim=1).sum())} "
+        f"slots; {json.dumps(sd.kernel_info(g['root_bits'], debug=True))} "
+        f"[{card_line}]")
+    if bad_err or not bad_marks:
+        raise AssertionError("debug form: the poisoned index was not marked "
+                             "as the plain version marks it")
+    del dbg_p, bad_tok, bg
+    os.environ["LIBFLATE_DEBUG_CHECKS"] = "1"
+    try:
+        for k in all_kernels:
+            k.launches = 0
+        sd.sync_decode.debug_launches = 0
+        if pgzf.decompress(stream, verify=True, device="cuda") != oracle:
+            raise AssertionError("debug checks: the clean shard differs")
+        launches[dbg_name] = sd.sync_decode.debug_launches
+        if launches[dbg_name] < 1 or sd.sync_decode.launches:
+            raise AssertionError("debug checks: the debug form did not run")
+        try:
+            pgzf.decompress(bad_stream, verify=True, device="cuda")
+            raise AssertionError("debug checks: the poisoned index decoded")
+        except DeflateError as e:
+            log(f"debug checks: the poisoned index raises DeflateError "
+                f"({e})")
+        # the reference test's flip leaves a chunk start past the body:
+        # the sync branch drops the stream and the next branch decodes it
+        flipped = bytearray(stream)
+        flipped[stream.find(b"LS") + 4 + 15] ^= 0xFF
+        if pgzf.decompress(bytes(flipped), device="cuda") != oracle:
+            raise AssertionError("debug checks: the flipped delta differs")
+        log("debug checks: the reference test's flipped LS delta falls "
+            "through the sync branch and decodes equal to gzip")
+    finally:
+        del os.environ["LIBFLATE_DEBUG_CHECKS"]
+    del bad_stream, flipped
+
+    # 5f. pgzf.decompress(verify=True) on the card at full width, counted:
+    # the branch taken, the host clock (median of 3), the peak memory
+    branch_log: list = []
+    real_branches = {}
+    for b_name in ("_decompress_sync", "_decompress_shared",
+                   "_decompress_generic", "_decompress_foreign"):
+        real_branches[b_name] = getattr(pgzf, b_name)
+
+        def spy(*a_, _f=real_branches[b_name], _n=b_name, **k_):
+            branch_log.append(_n)
+            return _f(*a_, **k_)
+        setattr(pgzf, b_name, spy)
+    ds_rows: list = []
+    real_ds = pgzf.decode_symbols
+
+    def ds_spy(*a_, **k_):
+        ds_rows.append(a_[0].shape[0])
+        return real_ds(*a_, **k_)
+    pgzf.decode_symbols = ds_spy
+    dec_streams = {
+        "sync shard (64 MiB)": stream,
+        "shared shard, LS index stripped": spec_stream,
+        "generic shard (1024 zlib level-9 bodies)": generic,
+        "1024 stdlib gzip members, no index": foreign,
+        "pgzf_encode_small.pgz": (DATA / "pgzf_encode_small.pgz").read_bytes()}
+    dec_results = {}
+    for what, dstream in dec_streams.items():
+        want = oracle if len(dstream) > 1 << 20 else gzip.decompress(dstream)
+        for k in all_kernels + (deflate_decode.decode_symbols,):
+            k.launches = 0
+        branch_log.clear()
+        ds_rows.clear()
+        if pgzf.decompress(dstream, verify=True, device="cuda") != want:
+            raise AssertionError(f"decompress ({what}) differs from gzip")
+        counts = {kname(k): k.launches for k in
+                  all_kernels + (deflate_decode.decode_symbols,)
+                  if k.launches}
+        taken = list(branch_log)
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            t = time.perf_counter()
+            pgzf.decompress(dstream, verify=True, device="cuda")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        dec_results[what] = (statistics.median(walls),
+                             torch.cuda.max_memory_allocated(), len(want))
+        log(f"decompress({what}, verify=True): branches tried {taken}, "
+            f"launches {counts}, decode_symbols rows {ds_rows[:1]}; host "
+            f"clock {dec_results[what][0] * 1e3:.2f} ms median of 3, "
+            f"{len(want) / dec_results[what][0] / 1e9:.3f} GB/s of "
+            f"plaintext, peak {dec_results[what][1] / 2**20:.0f} MiB; equal "
+            f"to gzip, every CRC checked [{card_line}]")
+        if what.startswith("generic"):
+            launches[kname(deflate_decode.decode_symbols)] = counts.get(
+                kname(deflate_decode.decode_symbols), 0)
+            if (taken[-1] != "_decompress_generic"
+                    or ds_rows[:1] != [len(gen_refs)]):
+                raise AssertionError(f"generic shard: branches {taken}, "
+                                     f"decode_symbols rows {ds_rows[:1]}")
+            log(f"generic shard: all {ds_rows[0]} of {len(gen_refs)} "
+                f"members took decode_symbols")
+    # the decode_symbols launch inside the generic branch, by CUDA events
+    in_branch: list = []
+
+    def ds_timed(*a_, **k_):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = real_ds(*a_, **k_)
+        e1.record()
+        torch.cuda.synchronize()
+        in_branch.append(e0.elapsed_time(e1))
+        return res
+    pgzf.decode_symbols = ds_timed
+    for _ in range(3):
+        pgzf.decompress(generic, verify=True, device="cuda")
+    pgzf.decode_symbols = real_ds
+    for b_name, fn in real_branches.items():
+        setattr(pgzf, b_name, fn)
+    log(f"decode_symbols in the generic branch (wrapper, zeroed outputs "
+        f"and the launch; 1024 rows): {statistics.median(in_branch):.4f} ms "
+        f"median of 3 [{card_line}]")
+
+    # 5g. inflate_device: 1 MiB of raw DEFLATE in small blocks (memLevel 1:
+    # matches reach into earlier blocks), and a stream with a stored block
+    c_ = zlib.compressobj(6, zlib.DEFLATED, -15, 1)
+    multi = c_.compress(oracle[:1 << 20]) + c_.flush()
+    c_ = zlib.compressobj(6, zlib.DEFLATED, -15)
+    mixed = (c_.compress(oracle[:40000]) + c_.flush(zlib.Z_FULL_FLUSH)
+             + b"\x01" + struct.pack("<HH", 30000, 30000 ^ 0xFFFF)
+             + oracle[40000:70000])
+    for what, raw_, want in (("1 MiB, memLevel 1", multi, oracle[:1 << 20]),
+                             ("dynamic block + stored block", mixed,
+                              oracle[:70000])):
+        deflate_decode.decode_symbols.launches = 0
+        t = time.perf_counter()
+        res = deflate_decode.inflate_device(raw_, device="cuda")
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        if bytes(res.data) != want or res.end_bit > 8 * len(raw_):
+            raise AssertionError(f"inflate_device ({what}) differs")
+        log(f"inflate_device({what}): {len(raw_)} bytes -> {len(want)} "
+            f"bytes equal to zlib, {deflate_decode.decode_symbols.launches} "
+            f"blocks through decode_symbols, end bit {res.end_bit}, "
+            f"{took * 1e3:.2f} ms [{card_line}]")
+
     # 6. encode kernels against their plain versions, first batch
     data = oracle
     ms_enc = 65536
@@ -931,6 +1328,28 @@ def main() -> None:
     cand_idx = cand.to(torch.int64).clamp(min=0)
     g2_flat = g2_idx.view(g2_b, -1).to(torch.int64).clamp(0, g2_r * 128 - 1)
     g2_flat_tabs = [t_.view(g2_b, -1) for t_ in g2_tabs]
+    # decode_symbols at the generic branch's shapes: the stream words from
+    # each start word to one past the end word, the start bits, every
+    # output once; the tables' sectors the lookups touch are not counted
+    ds_out = deflate_decode.decode_symbols(*ds_args)
+    torch.cuda.synchronize()
+    ds_bytes = (int((((ds_out[3].to(torch.int64) >> 5)
+                      - (ds_args[1].to(torch.int64) >> 5) + 2) * 4).sum())
+                + nbytes(ds_args[1], *ds_out))
+    rows.append(
+        (kname(deflate_decode.decode_symbols),
+         "libflate_tpu_torch/csrc/inflate.cu",
+         "libflate_tpu/ops/deflate_decode.py:81",
+         lambda: deflate_decode.decode_symbols(*ds_args),
+         lambda: deflate_decode.decode_symbols_plain(*ds_args), None,
+         ds_bytes, 5, 1))
+    rows.append(
+        (dbg_name, "libflate_tpu_torch/csrc/sync_decode.cu",
+         "libflate_tpu/ops/pallas_sync_decode.py:80",
+         lambda: sd.sync_decode(*sd_args, debug=True, d_words=g["d_words"]),
+         lambda: sd.sync_decode_plain(*sd_args, debug=True,
+                                      d_words=g["d_words"]), None,
+         nbytes(*sd_args[:5], toks), 20, 2))
     summary = []
     for name_, source, replaces, kfn, pfn, lfn, moved, reps, preps in rows:
         ms = cuda_ms(kfn, reps)
@@ -947,6 +1366,42 @@ def main() -> None:
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
             f"[{card_line}]")
     row = {r["name"]: r for r in summary}
+    # decode_symbols' latency bound: the longest stream's chain of
+    # dependent table loads (a litlen entry a token, a distance entry a
+    # match, the EOB's entry) times the latency of one dependent L2 load,
+    # measured by one thread chasing a random cycle of 2^22 int32 (16 MiB,
+    # inside the L2) with L2-only loads
+    chase = torch.randperm(1 << 22, device=dev)
+    chase_next = torch.empty(1 << 22, dtype=torch.int32, device=dev)
+    chase_next[chase] = torch.roll(chase, -1).to(torch.int32)
+    chase_sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    hops = 1 << 20
+    ns_hop = cuda_ms(lambda: _build.launch(
+        "lf_load_chase", chase_next.data_ptr(), hops,
+        chase_sink.data_ptr()), 3) * 1e6 / hops
+    ds_loads = int((ds_out[2].to(torch.int64)
+                    + (ds_out[1] > 0).sum(dim=1) + 1).max())
+    ds_lat_ms = ds_loads * ns_hop / 1e6
+    ds_w, ds_sb, ds_lt, ds_dt = (x.contiguous() for x in ds_args[:4])
+    ds_a = torch.zeros_like(ds_out[0])
+    ds_bb = torch.zeros_like(ds_out[1])
+    ds_n, ds_e = torch.empty_like(ds_out[2]), torch.empty_like(ds_out[3])
+    ds_r = torch.empty_like(ds_out[4])
+    ds_alone = cuda_ms_many([lambda: _build.launch(
+        "lf_decode_symbols", ds_w.data_ptr(), ds_w.shape[1], ds_sb.data_ptr(),
+        ds_lt.data_ptr(), ds_dt.data_ptr(), 0, ds_w.shape[0], 65538,
+        deflate_decode._decode_steps(65538, deflate_decode.DECODE_CHUNK),
+        ds_a.data_ptr(), ds_bb.data_ptr(), ds_n.data_ptr(), ds_e.data_ptr(),
+        ds_r.data_ptr())], 48)
+    dsr = row[kname(deflate_decode.decode_symbols)]
+    log(f"decode_symbols at {ds_w.shape[0]} members: kernel "
+        f"{dsr['ms']:.4f} ms, alone {ds_alone:.4f} ms (48 launches), bytes "
+        f"bound {dsr['bound_ms']:.4f} ms ({ds_bytes} bytes, tables not "
+        f"counted), latency bound {ds_lat_ms:.4f} ms (longest stream: "
+        f"{ds_loads} dependent table loads x {ns_hop:.2f} ns a dependent L2 "
+        f"load, measured); tokens {int(ds_out[2].sum())}, longest stream "
+        f"{int(ds_out[2].max())} [{card_line}]")
+    del chase, chase_next, ds_out, ds_a, ds_bb
     # the search half of rank_emit_src alone: every position searched in
     # the sentinel starts; not library_ms, since it computes neither src
     # nor lit, and the port never calls it

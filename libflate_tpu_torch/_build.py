@@ -29,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _SIGNATURES = {
     "lf_sync_decode": "pqpppppipiip",
     "lf_sync_info": "ip",
+    "lf_sync_decode_debug": "pqpppppiipiip",
+    "lf_sync_debug_info": "ip",
     "lf_rank_emit_src": "ppppppiiip",
     "lf_rank_info": "p",
     "lf_resolve_bytes": "pppiip",
@@ -59,6 +61,9 @@ _SIGNATURES = {
     "lf_spec_walk_info": "p",
     "lf_spec_decode_info": "p",
     "lf_spec_exits_info": "p",
+    "lf_decode_symbols": "pippppiiqpppppp",
+    "lf_decode_symbols_info": "p",
+    "lf_load_chase": "pqpp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 

@@ -53,6 +53,17 @@
 // * A block of 64 threads, so the slots spread over every SM in blocks of
 //   two warps (ops/sync_decode.kernel_info gives registers, shared memory
 //   and resident blocks).
+//
+// The debug-checks form (the reference's kernel traced with
+// LIBFLATE_DEBUG_CHECKS=1, pallas_sync_decode.py:63-77, :165-168) is a
+// second instantiation of the same template, `kDebug`, with its own entry
+// point; the default instantiation compiles as before.  The reference
+// staged d_words words from each slot's start bit rounded down to a word,
+// and marked a token with bit 30 (DEBUG_POISON) when its cursor, relative
+// to that word, was past d_words * 32 - 55 at the token's start.  This
+// kernel reads the whole stream, so it keeps that window's end as a bound
+// and applies the same predicate to active tokens: a corrupt LS index or
+// bitstream shows as a mark, which the host turns into a DeflateError.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -150,6 +161,9 @@ __device__ __forceinline__ uint32_t decode_token(
   return a | b << 9;
 }
 
+constexpr uint32_t kDebugPoison = 1u << 30;
+
+template <bool kDebug>
 __global__ void __launch_bounds__(kThreads)
 sync_decode_kernel(const uint32_t* __restrict__ words, int n_words,
                    const int64_t* __restrict__ start_bits,
@@ -157,7 +171,8 @@ sync_decode_kernel(const uint32_t* __restrict__ words, int n_words,
                    const int32_t* __restrict__ lit_t,
                    const int32_t* __restrict__ dist_t,
                    const int32_t* __restrict__ rows, int root_bits,
-                   int32_t* __restrict__ out, int n_slots, int k_tokens) {
+                   int32_t* __restrict__ out, int n_slots, int k_tokens,
+                   int d_words) {
   extern __shared__ uint32_t s_lit[];                    // 2^root_bits
   __shared__ uint32_t s_dist[kDistRoot];
   __shared__ int32_t s_rows[kRows];
@@ -196,14 +211,30 @@ sync_decode_kernel(const uint32_t* __restrict__ words, int n_words,
   }
   const uint32_t root_mask = (1u << root_bits) - 1;
   int32_t* tile = s_tile[threadIdx.x >> 5] + lane * kPitch;
+  // debug form: the last cursor that is not marked
+  const int64_t limit = (cursor & ~int64_t{31})
+                        + static_cast<int64_t>(d_words) * 32 - 55;
 
   for (int step0 = 0; step0 < k_tokens; step0 += 32) {
+    if constexpr (kDebug) {
 #pragma unroll 4
-    for (int j = 0; j < 32; ++j)
-      tile[j] = step0 + j < cnt
-          ? static_cast<int32_t>(decode_token(w, s_lit, s_dist, root_mask,
-                                              quads, n_full, tail))
-          : 0;
+      for (int j = 0; j < 32; ++j) {
+        // the cursor at the token's start against the staged window
+        const bool mark = static_cast<int64_t>(w.qn) * 128 + w.o > limit;
+        tile[j] = step0 + j < cnt
+            ? static_cast<int32_t>(decode_token(w, s_lit, s_dist, root_mask,
+                                                quads, n_full, tail)
+                                   | (mark ? kDebugPoison : 0u))
+            : 0;
+      }
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < 32; ++j)
+        tile[j] = step0 + j < cnt
+            ? static_cast<int32_t>(decode_token(w, s_lit, s_dist, root_mask,
+                                                quads, n_full, tail))
+            : 0;
+    }
     __syncwarp();
     // row i of the tile: slot slot0 + i, steps step0 .. step0 + 31
     const int cols = min(32, k_tokens - step0);
@@ -221,13 +252,11 @@ size_t dynamic_smem(int root_bits) {
   return sizeof(uint32_t) << root_bits;
 }
 
-}  // namespace
-
-extern "C" int lf_sync_decode(const void* words, int64_t n_words,
-                              const void* start_bits, const void* counts,
-                              const void* lit_t, const void* dist_t,
-                              const void* rows, int root_bits, void* out,
-                              int n_slots, int k_tokens, void* stream) {
+template <bool kDebug>
+int launch_sync(const void* words, int64_t n_words, const void* start_bits,
+                const void* counts, const void* lit_t, const void* dist_t,
+                const void* rows, int root_bits, void* out, int n_slots,
+                int k_tokens, int d_words, void* stream) {
   if (n_slots <= 0 || k_tokens <= 0) return 0;
   if (root_bits < 1 || root_bits > 12)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -237,26 +266,24 @@ extern "C" int lf_sync_decode(const void* words, int64_t n_words,
     return static_cast<int>(cudaErrorInvalidValue);
   // at most 16 KB (12-bit root) plus ~9.7 KB static: no opt-in needed
   const int blocks = (n_slots + kThreads - 1) / kThreads;
-  sync_decode_kernel<<<blocks, kThreads, dynamic_smem(root_bits),
-                       static_cast<cudaStream_t>(stream)>>>(
+  sync_decode_kernel<kDebug><<<blocks, kThreads, dynamic_smem(root_bits),
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<int>(n_words),
       static_cast<const int64_t*>(start_bits),
       static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(lit_t), static_cast<const int32_t*>(dist_t),
       static_cast<const int32_t*>(rows), root_bits,
-      static_cast<int32_t*>(out), n_slots, k_tokens);
+      static_cast<int32_t*>(out), n_slots, k_tokens, d_words);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel as compiled: out[0..5] = registers, static shared bytes,
-// spill bytes, dynamic shared bytes at root_bits, resident blocks per SM
-// at that size, threads per block.
-extern "C" int lf_sync_info(int root_bits, void* out) {
+template <bool kDebug>
+int sync_info(int root_bits, void* out) {
   int* o = static_cast<int*>(out);
   if (root_bits < 1 || root_bits > 12)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, sync_decode_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&fa, sync_decode_kernel<kDebug>);
   if (err != cudaSuccess) return static_cast<int>(err);
   o[0] = fa.numRegs;
   o[1] = static_cast<int>(fa.sharedSizeBytes);
@@ -264,5 +291,41 @@ extern "C" int lf_sync_info(int root_bits, void* out) {
   o[3] = static_cast<int>(dynamic_smem(root_bits));
   o[5] = kThreads;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &o[4], sync_decode_kernel, kThreads, dynamic_smem(root_bits)));
+      &o[4], sync_decode_kernel<kDebug>, kThreads, dynamic_smem(root_bits)));
+}
+
+}  // namespace
+
+extern "C" int lf_sync_decode(const void* words, int64_t n_words,
+                              const void* start_bits, const void* counts,
+                              const void* lit_t, const void* dist_t,
+                              const void* rows, int root_bits, void* out,
+                              int n_slots, int k_tokens, void* stream) {
+  return launch_sync<false>(words, n_words, start_bits, counts, lit_t, dist_t,
+                            rows, root_bits, out, n_slots, k_tokens, 0,
+                            stream);
+}
+
+// The debug-checks form: as lf_sync_decode, and a token whose cursor is
+// past its slot's staged window of d_words words carries bit 30.
+extern "C" int lf_sync_decode_debug(const void* words, int64_t n_words,
+                                    const void* start_bits,
+                                    const void* counts, const void* lit_t,
+                                    const void* dist_t, const void* rows,
+                                    int root_bits, int d_words, void* out,
+                                    int n_slots, int k_tokens, void* stream) {
+  return launch_sync<true>(words, n_words, start_bits, counts, lit_t, dist_t,
+                           rows, root_bits, out, n_slots, k_tokens, d_words,
+                           stream);
+}
+
+// The kernel as compiled: out[0..5] = registers, static shared bytes,
+// spill bytes, dynamic shared bytes at root_bits, resident blocks per SM
+// at that size, threads per block; lf_sync_debug_info for the debug form.
+extern "C" int lf_sync_info(int root_bits, void* out) {
+  return sync_info<false>(root_bits, out);
+}
+
+extern "C" int lf_sync_debug_info(int root_bits, void* out) {
+  return sync_info<true>(root_bits, out);
 }

@@ -19,13 +19,26 @@ takes the foreign-stream bridge, ``_foreign_to_device`` (``:833-932``):
 the host token decode of :mod:`..native`, then expand_members -> CRC
 f-values.
 
+Host output: :func:`decompress` (``:452-512``, its device half) returns
+bytes through the reference's three device branches in its order: the
+sync branch ``_decompress_sync`` (``_decompress_sync_device``,
+``:540-749``: members the sync kernel cannot take go through the foreign
+token decode), the shared-table branch ``_decompress_shared``
+(``_decompress_shared_device``, ``:1264-1301``) and the generic branch
+``_decompress_generic`` (``_decompress_device``, ``:1304-1443``: each
+member's own tables, ``ops/deflate_decode.decode_symbols``); a branch's
+ImportError falls through to the next, the last to the foreign path.
+Every branch ends in one device-to-host copy of the rows.
+
 The host helpers — member index, LS sync index, chunk spans, member
 header — are the port's own copies of the reference's (``:38-74``,
 ``:76-101``, ``:126-144``, ``:425-449``).
 """
 from __future__ import annotations
 
+import os
 import struct
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,12 +47,14 @@ import torch
 from ..ops.checksum import crc32_f_rows, crc32_from_padded_f
 from ..ops.decode import chunk_exit_maps, speculative_decode_positions, \
     walk_emit
-from ..ops.deflate_decode import chain_entries, tokens_from_emit_packed
+from ..ops.deflate_decode import chain_entries, decode_symbols, \
+    tokens_from_emit_packed
 from ..ops.deflate_encode import splice_blocks_host
 from ..ops.device_expand import expand_members
-from ..ops.huffman import decode_table
+from ..ops.huffman import decode_table, tables_from_lengths
 from ..ops.pipeline import device_knobs, encode_batch
-from ..ops.sync_decode import SYNC_TOKENS, stream_words, sync_decode
+from ..ops.sync_decode import DEBUG_POISON, SYNC_TOKENS, \
+    debug_checks, staged_words, stream_words, sync_decode
 from ..serial.deflate import DeflateError, deflate_stored, \
     parse_block_headers
 from ..spec import constants as C
@@ -321,7 +336,7 @@ def decompress_to_device(data: bytes, verify: bool = False,
                 return _spec_to_device(data, refs, verify, dev)
             except ImportError:
                 pass
-        return _foreign_to_device(data, verify, refs, dev)
+        return _foreign_to_device(data, verify, refs, dev)[:2]
     plains, lens = [], []
     for prep in groups:
         plain, n_out, err, crc_f = _run_sync_chain(prep)
@@ -345,29 +360,31 @@ def decompress_to_device(data: bytes, verify: bool = False,
                        for p in plains]), lengths)
 
 
-def _prepare_sync_device(data: bytes, device) -> list[dict]:
-    """Host-side staging for the device decode chain.
+def _member_trailers(data: bytes, refs: list[MemberRef]):
+    """(expected CRCs (B,) uint32, ISIZEs (B,) int64) from the trailers."""
+    crcs = np.zeros((len(refs),), np.uint32)
+    isizes = np.zeros((len(refs),), np.int64)
+    for i, ref in enumerate(refs):
+        crcs[i], isizes[i] = struct.unpack_from("<II", data, ref.end - 8)
+    return crcs, isizes
 
-    Parses the LS index and the block headers, splits members into
-    contiguous groups sharing one code table and chunk size, and gives
-    member j of a group the chunk slots ``[j*max_nc, (j+1)*max_nc)``
-    (padding slots decode 0 tokens), so the token rows come out
-    member-major.  The stream goes to the device once, as words; each
-    slot carries its absolute start bit.  Raises ImportError if ANY member
-    is not sync-decodable.
-    """
+
+def _member_syncs(data: bytes, refs: list[MemberRef]) -> list:
+    """Each member's parsed LS index, None where it has none."""
+    return [_parse_sync(fgzip.Header.decode(data, r.start)[0])
+            for r in refs]
+
+
+def _prepare_sync_device(data: bytes, device) -> list[dict]:
+    """Host-side staging for the device decode chain of a stream whose
+    every member is sync-decodable: contiguous groups sharing one code
+    table and chunk size (:func:`_stage_sync_groups`).  Raises
+    ImportError if ANY member is not sync-decodable."""
     refs = index_members(data)
     if not refs:
         raise ImportError("no member index")
-    n_all = len(refs)
-    isizes_all = np.zeros((n_all,), np.int64)
-    crcs_all = np.zeros((n_all,), np.uint32)
-    syncs: list = [None] * n_all
-    for i, ref in enumerate(refs):
-        crcs_all[i], isizes_all[i] = struct.unpack_from(
-            "<II", data, ref.end - 8)
-        hdr, _ = fgzip.Header.decode(data, ref.start)
-        syncs[i] = _parse_sync(hdr)
+    crcs_all, isizes_all = _member_trailers(data, refs)
+    syncs = _member_syncs(data, refs)
     if any(s is None for s in syncs):
         raise ImportError("stream is not fully sync-indexed")
 
@@ -376,55 +393,78 @@ def _prepare_sync_device(data: bytes, device) -> list[dict]:
     if not ((flags == 5).all() and int(lit_ls.max()) <= 12
             and int(dist_ls.max()) <= 8):
         raise ImportError("not a sync-decodable shared-table stream")
+    if any(int(s[2]) != int(b) for s, b in zip(syncs, starts64)):
+        raise ImportError("sync index disagrees with block header")
 
     # contiguous groups with identical tables and chunk size
     bounds = [0]
-    for i in range(1, n_all):
-        if not ((lit_ls[i] == lit_ls[bounds[-1]]).all()
-                and (dist_ls[i] == dist_ls[bounds[-1]]).all()
-                and syncs[i][0] == syncs[bounds[-1]][0]):
+    for i in range(1, len(refs)):
+        if not _same_sync_group(i, bounds[-1], lit_ls, dist_ls, syncs):
             bounds.append(i)
-    bounds.append(n_all)
+    bounds.append(len(refs))
+    return _stage_sync_groups(
+        data, refs, [list(range(g0, g1)) for g0, g1 in
+                     zip(bounds[:-1], bounds[1:])],
+        syncs, lit_ls, dist_ls, isizes_all, crcs_all, device)
 
-    member_cap = int(isizes_all.max(initial=1))
-    member_cap = 1 << max(10, (member_cap - 1).bit_length())
 
+def _same_sync_group(i: int, j: int, lit_ls, dist_ls, syncs) -> bool:
+    """Members i and j share their code lengths and chunk size."""
+    return bool((lit_ls[i] == lit_ls[j]).all()
+                and (dist_ls[i] == dist_ls[j]).all()
+                and syncs[i][0] == syncs[j][0])
+
+
+def _stage_sync_groups(data: bytes, refs: list[MemberRef],
+                       groups: list[list[int]], syncs, lit_ls, dist_ls,
+                       isizes, crcs, device) -> list[dict]:
+    """Stage each group of sync-decodable members for one sync decode.
+
+    Member j of a group gets the chunk slots ``[j*max_nc, (j+1)*max_nc)``
+    (padding slots decode 0 tokens), so the token rows come out
+    member-major.  The stream goes to the device once, as words; each
+    slot carries its absolute start bit.  A group also keeps the
+    reference's staging depth ``d_words`` for the debug form.  Raises
+    ImportError for a corrupt or empty LS index.
+    """
+    member_cap = int(max((isizes[i] for g in groups for i in g), default=1))
+    member_cap = 1 << max(10, (max(member_cap, 1) - 1).bit_length())
     words = stream_words(data, device)
-    groups = []
-    for g0, g1 in zip(bounds[:-1], bounds[1:]):
-        bsz = g1 - g0
-        k_tok = syncs[g0][0]
-        nc = np.zeros((bsz,), np.int64)
-        for j, i in enumerate(range(g0, g1)):
-            if int(syncs[i][2]) != int(starts64[i]):
-                raise ImportError("sync index disagrees with block header")
-            nc[j] = -(-int(syncs[i][1]) // k_tok)
-        max_nc = int(nc.max(initial=1))
+    out = []
+    for group in groups:
+        bsz = len(group)
+        k_tok = syncs[group[0]][0]
+        spans = [_chunk_spans(syncs[i], refs[i]) for i in group]
+        max_nc = max(len(sp[0]) for sp in spans)
         start_bits = np.zeros((bsz * max_nc,), np.int64)
         counts = np.zeros((bsz * max_nc,), np.int32)
-        for j, i in enumerate(range(g0, g1)):
-            starts, _ends, counts_i = _chunk_spans(syncs[i], refs[i])
+        for j, (i, (starts, _ends, counts_i)) in enumerate(
+                zip(group, spans)):
             s0 = j * max_nc
             start_bits[s0:s0 + len(starts)] = refs[i].body * 8 + starts
             counts[s0:s0 + len(starts)] = counts_i
-        rb = max(int(np.max(lit_ls[g0][:C.MAX_LITLEN_SYMBOLS])), 7)
-        groups.append({
+        d_words = staged_words(
+            np.concatenate([refs[i].body * 8 + sp[0]
+                            for i, sp in zip(group, spans)]),
+            np.concatenate([refs[i].body * 8 + sp[1]
+                            for i, sp in zip(group, spans)]))
+        rb = max(int(np.max(lit_ls[group[0]][:C.MAX_LITLEN_SYMBOLS])), 7)
+        out.append({
             "words": words,
             "start_bits": torch.from_numpy(start_bits).to(device),
             "counts": torch.from_numpy(counts).to(device),
-            "lit_t": decode_table(lit_ls[g0][:C.MAX_LITLEN_SYMBOLS], rb,
-                                  device),
-            "dist_t": decode_table(dist_ls[g0], 8, device),
-            "k_tok": k_tok, "root_bits": rb,
+            "lit_t": decode_table(lit_ls[group[0]][:C.MAX_LITLEN_SYMBOLS],
+                                  rb, device),
+            "dist_t": decode_table(dist_ls[group[0]], 8, device),
+            "k_tok": k_tok, "root_bits": rb, "d_words": d_words,
             "bsz": bsz, "max_nc": max_nc, "member_cap": member_cap,
-            "n_tokens": torch.tensor([int(syncs[i][1]) for i in
-                                      range(g0, g1)], dtype=torch.int32,
-                                     device=device),
-            "isizes": isizes_all[g0:g1],
-            "crcs_expected": crcs_all[g0:g1],
-            "member0": g0,
+            "n_tokens": torch.tensor([int(syncs[i][1]) for i in group],
+                                     dtype=torch.int32, device=device),
+            "isizes": isizes[group],
+            "crcs_expected": crcs[group],
+            "member0": group[0], "members": group,
         })
-    return groups
+    return out
 
 
 def _run_sync_chain(prep: dict):
@@ -433,7 +473,7 @@ def _run_sync_chain(prep: dict):
     device."""
     toks = sync_decode(prep["words"], prep["start_bits"], prep["counts"],
                        prep["lit_t"], prep["dist_t"], prep["k_tok"],
-                       root_bits=prep["root_bits"])
+                       root_bits=prep["root_bits"], debug=False)
     return _sync_to_plain(toks, prep["bsz"], prep["max_nc"], prep["k_tok"],
                           prep["n_tokens"], prep["member_cap"])
 
@@ -453,7 +493,8 @@ _FOREIGN_MEMBER_CAP = 1 << 20
 
 
 def _foreign_to_device(data: bytes, verify: bool,
-                       refs: list[MemberRef] | None, device):
+                       refs: list[MemberRef] | None, device,
+                       truncated=fgzip.GzipError):
     """decompress_to_device for foreign streams: members with their own
     dynamic, fixed or stored blocks, with or without the LF index, from
     any writer (stdlib gzip, pigz, the port's own stored members).
@@ -464,8 +505,11 @@ def _foreign_to_device(data: bytes, verify: bool,
     tokens then go through the sync path's expansion and CRC f-values on
     ``device``.  Output shapes follow the reference's rule: tokens padded
     to a multiple of 1024, rows to a power of two of at least 1024.
+    Returns (rows, (B,) int32 lengths, the trailers' CRCs); an
+    un-indexed member without its trailer raises ``truncated``.
     """
-    packed, nt, sizes, crcs_expected, out_cap = _foreign_tokens(data, refs)
+    packed, nt, sizes, crcs_expected, out_cap = _foreign_tokens(
+        data, refs, truncated)
     plain, _n_out, err = expand_members(torch.from_numpy(packed).to(device),
                                         torch.from_numpy(nt).to(device),
                                         out_cap)
@@ -478,14 +522,17 @@ def _foreign_to_device(data: bytes, verify: bool,
             if int(crcs[i]) != int(crcs_expected[i]):
                 raise fgzip.GzipError(f"gzip CRC mismatch in member {i}")
     return plain, torch.from_numpy(np.asarray(sizes, np.int64).astype(
-        np.int32)).to(device)
+        np.int32)).to(device), crcs_expected
 
 
-def _foreign_tokens(data: bytes, refs: list[MemberRef] | None):
+def _foreign_tokens(data: bytes, refs: list[MemberRef] | None,
+                    truncated=fgzip.GzipError):
     """The host half of :func:`_foreign_to_device`: (packed (B, t_cap)
     int32 tokens, n_tokens (B,) int32, sizes, expected CRCs) of every
     member, from the trailers and the C token decoder, and the width of
-    the plaintext rows, out_cap."""
+    the plaintext rows, out_cap.  An un-indexed member without its
+    trailer raises ``truncated`` (the reference's ``_foreign_to_device``
+    raises GzipError there, its host decoder EOFError)."""
     from .. import native
 
     if refs is not None:
@@ -521,8 +568,7 @@ def _foreign_tokens(data: bytes, refs: list[MemberRef] | None):
         toks, osize, eb = r
         end_byte = body + (eb + 7) // 8
         if end_byte + 8 > len(data):
-            raise fgzip.GzipError(
-                "truncated gzip member (missing trailer)")
+            raise truncated("truncated gzip member (missing trailer)")
         crc_exp, isize = struct.unpack_from("<II", data, end_byte)
         if isize != (osize & 0xFFFFFFFF):
             raise fgzip.GzipError(
@@ -556,11 +602,7 @@ def _spec_to_device(data: bytes, refs: list[MemberRef], verify: bool,
     """decompress_to_device for shared-table streams without the LS
     index: speculative decode to tokens (:func:`_spec_token_groups`),
     then the sync path's expansion and CRC f-values."""
-    isizes = np.zeros((len(refs),), np.int64)
-    crcs_expected = np.zeros((len(refs),), np.uint32)
-    for i, ref in enumerate(refs):
-        crcs_expected[i], isizes[i] = struct.unpack_from(
-            "<II", data, ref.end - 8)
+    crcs_expected, isizes = _member_trailers(data, refs)
     plains, lens = [], []
     for packed, nt, group, cap in _spec_token_groups(data, refs, device):
         plain, _n_out, err = expand_members(packed, nt, cap)
@@ -648,3 +690,297 @@ def _spec_token_groups(data: bytes, refs: list[MemberRef], device):
             raise DeflateError(f"speculative decode failed in member "
                                f"{st['group'][int(bad[0])]}")
         yield packed, nt, st["group"], st["out_cap"]
+
+
+def decompress(data: bytes, verify: bool = True, device="cuda") -> bytes:
+    """Decompress a gzip stream on ``device`` and return its plaintext.
+
+    The counterpart of the reference's ``decompress`` on its device
+    branches, tried in its order: an LF-indexed stream takes the sync
+    branch (members with the LS index; unless ``LIBFLATE_NO_SYNC`` is
+    set, read at each call), then the shared-table speculative branch
+    (unless ``LIBFLATE_NO_SPEC``), then the generic branch (each member's
+    own tables: members that are one final dynamic or fixed block decode
+    with ``decode_symbols`` on the card).  A branch that cannot take the
+    stream raises ImportError, and the next one tries; a stream without
+    the LF index, or one none of them takes, goes through the
+    foreign-stream path (host token decode, device expansion).  Members
+    a branch cannot take decode by the foreign token decode too.
+
+    ``verify=True`` checks every member's CRC-32: from CRC f-values of
+    the device rows, and with zlib's CRC on members that the foreign
+    token decode read.  With ``LIBFLATE_DEBUG_CHECKS=1`` the sync branch
+    runs the kernel's debug-checks form and raises DeflateError if a
+    chunk's cursor left the window the reference would have staged.
+
+    Raises DeflateError for a malformed or corrupt member (an invalid
+    Huffman code, a bad back-reference), GzipError for a CRC or size
+    mismatch or a truncated trailer, ValueError for an empty stream,
+    ImportError for a member larger than 1 MiB that no device branch
+    takes, and RuntimeError for ``device="cuda"`` without CUDA.
+    """
+    dev = _device(device)
+    data = bytes(data)
+    refs = index_members(data)
+    if refs is not None:
+        if not os.environ.get("LIBFLATE_NO_SYNC"):
+            try:
+                return _decompress_sync(data, refs, verify, dev)
+            except ImportError:
+                pass
+        if not os.environ.get("LIBFLATE_NO_SPEC"):
+            try:
+                return _decompress_shared(data, refs, verify, dev)
+            except ImportError:
+                pass
+        try:
+            return _decompress_generic(data, refs, verify, dev)
+        except ImportError:
+            pass
+    return _decompress_foreign(data, refs, verify, dev)
+
+
+def _join_rows(n_members: int, parts, device):
+    """One device-to-host copy of every member's plaintext.
+
+    ``parts``: (member indices, (b, cap) uint8 rows on ``device``, (b,)
+    int64 lengths).  Returns (the members' bytes joined in member order,
+    (n_members + 1,) int64 offsets of each member in them)."""
+    lens = np.zeros((n_members,), np.int64)
+    for ids, _rows, ln in parts:
+        lens[ids] = ln
+    offs = np.zeros((n_members + 1,), np.int64)
+    np.cumsum(lens, out=offs[1:])
+    if not parts:
+        return b"", offs
+    if len(parts) == 1 and list(parts[0][0]) == list(range(n_members)):
+        rows = parts[0][1]
+    else:
+        rows = torch.zeros((n_members, max(p[1].shape[1] for p in parts)),
+                           dtype=torch.uint8, device=device)
+        for ids, part, _ln in parts:
+            rows[torch.as_tensor(ids, device=device),
+                 :part.shape[1]] = part
+    live = (torch.arange(rows.shape[1], device=device)[None, :]
+            < torch.from_numpy(lens).to(device)[:, None])
+    return rows[live].cpu().numpy().tobytes(), offs
+
+
+def _check_crcs(rows, lens, crcs_expected, ids, cap: int) -> None:
+    """GzipError naming the first member whose row's CRC-32 (from its
+    f-value) differs from its trailer."""
+    got = crc32_from_padded_f(crc32_f_rows(rows).cpu().numpy(),
+                              np.asarray(lens, np.int64), cap)
+    for k, i in enumerate(ids):
+        if int(got[k]) != int(crcs_expected[k]):
+            raise fgzip.GzipError(f"gzip CRC mismatch in member {i}")
+
+
+def _check_host_crcs(out: bytes, offs, crcs_expected, ids) -> None:
+    """GzipError naming the first of the foreign-decoded members ``ids``
+    whose zlib CRC-32 differs from its trailer."""
+    view = memoryview(out)
+    for i in ids:
+        if zlib.crc32(view[offs[i]:offs[i + 1]]) != int(crcs_expected[i]):
+            raise fgzip.GzipError(f"gzip CRC mismatch in member {i}")
+
+
+def _host_rows(data: bytes, refs: list[MemberRef], ids, device):
+    """Members ``ids`` through the foreign token decode (the host C
+    decoder) and the device expansion: ((b, cap) uint8 rows, (b,) int64
+    decoded sizes).  DeflateError for a malformed body, ImportError for
+    a member past the expansion's 1 MiB."""
+    from .. import native
+    bodies = [(refs[i].body, refs[i].end - 8) for i in ids]
+    # a token takes at least one bit
+    t_cap = max(1024, -(-max(8 * (e - b) + 8 for b, e in bodies)
+                        // 1024) * 1024)
+    packed, counts, osz = native.inflate_tokens_batch(
+        data, [b for b, _ in bodies], [e for _, e in bodies], t_cap)
+    sizes = osz.astype(np.int64)
+    if int(sizes.max()) > _FOREIGN_MEMBER_CAP:
+        raise ImportError("foreign member too large for the device "
+                          "expansion footprint")
+    rows, _n, err = expand_members(
+        torch.from_numpy(packed).to(device),
+        torch.from_numpy(counts.astype(np.int32)).to(device),
+        _foreign_out_cap([int(x) for x in sizes]))
+    if bool(err.any()):
+        raise DeflateError(f"bad back-reference in member "
+                           f"{ids[int(np.argmax(err.cpu().numpy()))]}")
+    return rows, sizes
+
+
+def _decompress_foreign(data: bytes, refs, verify: bool, device) -> bytes:
+    """The foreign-stream path to bytes: :func:`_foreign_to_device`, one
+    copy back, zlib's CRC.  A missing trailer raises EOFError, as the
+    reference's host decoder does."""
+    rows, lengths, crcs = _foreign_to_device(data, False, refs, device,
+                                             truncated=EOFError)
+    n = len(crcs)
+    out, offs = _join_rows(n, [(range(n), rows, lengths.cpu().numpy())],
+                           device)
+    if verify:
+        _check_host_crcs(out, offs, crcs, range(n))
+    return out
+
+
+def _decompress_sync(data: bytes, refs: list[MemberRef], verify: bool,
+                     device) -> bytes:
+    """The sync branch (``_decompress_sync_device``): members with an LS
+    index, one final dynamic block, codes of at most 12 / 8 bits and a
+    first bit that matches the header decode with the sync kernel, a
+    launch per group of consecutive such members sharing tables and K;
+    the others through the foreign token decode.  ImportError before any
+    decode when no member qualifies, or for a corrupt LS index."""
+    n = len(refs)
+    crcs, isizes = _member_trailers(data, refs)
+    syncs = _member_syncs(data, refs)
+    if not any(s is not None for s in syncs):
+        raise ImportError("no sync index present")
+    lit_ls, dist_ls, starts64, flags = parse_block_headers(
+        [data[r.body:r.end - 8] for r in refs])
+    device_ok = np.array(
+        [s is not None and flags[i] == 1 | (C.BTYPE_DYNAMIC << 1)
+         and int(lit_ls[i].max()) <= 12 and int(dist_ls[i].max()) <= 8
+         and int(s[1]) > 0 and int(s[2]) == int(starts64[i])
+         for i, s in enumerate(syncs)], bool)
+    dev_idx = [int(i) for i in np.flatnonzero(device_ok)]
+    if not dev_idx:
+        raise ImportError("no sync-decodable members")
+    host_idx = [int(i) for i in np.flatnonzero(~device_ok)]
+    parts = []
+    if host_idx:
+        rows, sizes = _host_rows(data, refs, host_idx, device)
+        parts.append((host_idx, rows, sizes))
+
+    groups: list[list[int]] = []
+    for i in dev_idx:
+        if groups and _same_sync_group(i, groups[-1][0], lit_ls, dist_ls,
+                                       syncs):
+            groups[-1].append(i)
+        else:
+            groups.append([i])
+    debug = debug_checks()
+    for prep in _stage_sync_groups(data, refs, groups, syncs, lit_ls,
+                                   dist_ls, isizes, crcs, device):
+        toks = sync_decode(prep["words"], prep["start_bits"],
+                           prep["counts"], prep["lit_t"], prep["dist_t"],
+                           prep["k_tok"], root_bits=prep["root_bits"],
+                           debug=debug, d_words=prep["d_words"])
+        if debug:
+            marked = ((toks & DEBUG_POISON) != 0).any(dim=1)
+            if bool(marked.any()):
+                raise DeflateError(
+                    f"sync kernel invariant violated (cursor escaped its "
+                    f"staged window) in chunk slot "
+                    f"{int(torch.argmax(marked.to(torch.int8)))} — corrupt "
+                    f"LS index or bitstream")
+        plain, n_out, err, crc_f = _sync_to_plain(
+            toks, prep["bsz"], prep["max_nc"], prep["k_tok"],
+            prep["n_tokens"], prep["member_cap"])
+        bad = err.cpu().numpy() | (n_out.cpu().numpy() != prep["isizes"])
+        if bad.any():
+            raise DeflateError(f"token expansion failed in member "
+                               f"{prep['members'][int(np.argmax(bad))]}")
+        if verify:
+            got = crc32_from_padded_f(crc_f.cpu().numpy(), prep["isizes"],
+                                      prep["member_cap"])
+            for k, i in enumerate(prep["members"]):
+                if int(got[k]) != int(prep["crcs_expected"][k]):
+                    raise fgzip.GzipError(f"gzip CRC mismatch in member {i}")
+        parts.append((prep["members"], plain, prep["isizes"]))
+
+    out, offs = _join_rows(n, parts, device)
+    if verify and host_idx:
+        for i in host_idx:
+            if offs[i + 1] - offs[i] != int(isizes[i]):
+                raise fgzip.GzipError(f"gzip ISIZE mismatch in member {i}")
+        _check_host_crcs(out, offs, crcs, host_idx)
+    return out
+
+
+def _decompress_shared(data: bytes, refs: list[MemberRef], verify: bool,
+                       device) -> bytes:
+    """The shared-table branch (``_decompress_shared_device``):
+    :func:`_spec_to_device` and one copy back.  ImportError where the
+    speculative decode cannot take the stream."""
+    rows, lengths = _spec_to_device(data, refs, verify, device)
+    n = len(refs)
+    return _join_rows(n, [(range(n), rows, lengths.cpu().numpy())],
+                      device)[0]
+
+
+def _decompress_generic(data: bytes, refs: list[MemberRef], verify: bool,
+                        device) -> bytes:
+    """The generic branch (``_decompress_device``): every member that is
+    one final dynamic or fixed block decodes with its own tables (built
+    once for each distinct set of code lengths) in one ``decode_symbols``
+    launch (``max_tokens = out_cap + 2``) and one expansion; the others
+    through the foreign token decode.  ImportError
+    when a body exceeds the reference's word budget (``out_cap // 4 +
+    512`` words a row)."""
+    n = len(refs)
+    crcs, isizes = _member_trailers(data, refs)
+    bodies = [data[r.body:r.end - 8] for r in refs]
+    max_body = max((len(b) for b in bodies), default=0)
+    lit_ls, dist_ls, starts64, flags = parse_block_headers(bodies)
+    device_ok = ((flags == 1 | (C.BTYPE_DYNAMIC << 1))
+                 | (flags == 1 | (C.BTYPE_FIXED << 1)))
+    host_idx = [int(i) for i in np.flatnonzero(~device_ok)]
+    parts = []
+    if host_idx:
+        rows, sizes = _host_rows(data, refs, host_idx, device)
+        for k, i in enumerate(host_idx):
+            if int(sizes[k]) != int(isizes[i]):
+                raise fgzip.GzipError(f"gzip ISIZE mismatch in member {i}")
+        parts.append((host_idx, rows, sizes))
+
+    out_cap = int(isizes.max(initial=1)) or 1
+    out_cap = 1 << max(8, (out_cap - 1).bit_length())
+    n_words = out_cap // 4 + 512
+    if max_body > 4 * (n_words - 2):
+        raise ImportError("member body exceeds device word budget")
+    dev_idx = [int(i) for i in np.flatnonzero(device_ok)]
+    if dev_idx:
+        words = np.zeros((len(dev_idx), 4 * n_words), np.uint8)
+        for k, i in enumerate(dev_idx):
+            words[k, :len(bodies[i])] = np.frombuffer(bodies[i], np.uint8)
+        # members with equal code lengths share one pair of tables
+        uniq, inv = np.unique(np.concatenate(
+            [lit_ls[dev_idx], dist_ls[dev_idx]], axis=1), axis=0,
+            return_inverse=True)
+        lit_t, dist_t = tables_from_lengths(
+            torch.from_numpy(uniq[:, :lit_ls.shape[1]]).to(device),
+            torch.from_numpy(uniq[:, lit_ls.shape[1]:]).to(device))
+        a, b, nt, _end, err = decode_symbols(
+            torch.from_numpy(words.view("<i4")).to(device),
+            torch.from_numpy(starts64[dev_idx].astype(np.int32)).to(device),
+            lit_t, dist_t, out_cap + 2,
+            table_idx=torch.from_numpy(
+                inv.reshape(-1).astype(np.int32)).to(device))
+        del lit_t, dist_t
+        err_np = err.cpu().numpy()
+        if err_np.any():
+            raise DeflateError(f"invalid Huffman code in member "
+                               f"{dev_idx[int(np.argmax(err_np))]}")
+        plain, n_out, xerr = expand_members(a | b << 9, nt, out_cap)
+        del a, b
+        xerr_np = xerr.cpu().numpy()
+        if xerr_np.any():
+            raise DeflateError(f"bad back-reference in member "
+                               f"{dev_idx[int(np.argmax(xerr_np))]}")
+        n_out_np = n_out.cpu().numpy()
+        for k, i in enumerate(dev_idx):
+            if int(n_out_np[k]) != int(isizes[i]):
+                raise fgzip.GzipError(
+                    f"gzip ISIZE mismatch in member {i}: "
+                    f"{int(isizes[i])} != {int(n_out_np[k])}")
+        if verify:
+            _check_crcs(plain, isizes[dev_idx], crcs[dev_idx], dev_idx,
+                        out_cap)
+        parts.append((dev_idx, plain, isizes[dev_idx]))
+    out, offs = _join_rows(n, parts, device)
+    if verify and host_idx:
+        _check_host_crcs(out, offs, crcs, host_idx)
+    return out

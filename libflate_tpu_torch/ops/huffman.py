@@ -1,7 +1,10 @@
 """Huffman code construction on the host, in numpy (counterpart of
 ``libflate_tpu/ops/huffman.py``): ``package_merge_lengths`` (``:40``),
 ``canonical_codes_jax`` (``:108``), ``reverse_codes_jax`` (``:133``) and
-``decode_table`` (``:155``) with its ``_bit_reverse`` (``:145``).
+``decode_table`` (``:155``) with its ``_bit_reverse`` (``:145``); and
+``tables_from_lengths`` (``libflate_tpu/ops/deflate_decode.py:479-489``),
+the batched decode tables of the generic device decode, in torch ops on
+the lengths' device.
 
 Alphabets are at most 288 symbols and tables at most 4096 entries, so
 this is host glue; results go to the caller's device as int32 tensors
@@ -129,3 +132,47 @@ def decode_table(lengths, table_bits: int = MAX_BITWIDTH,
     sym = sym_by_rank[np.clip(best_rank, 0, n - 1)]
     table = np.where(best_width > 0, (sym << 4) | best_width, 0)
     return torch.from_numpy(table.astype(np.int32)).to(device)
+
+
+def tables_from_lengths(lit_lengths: torch.Tensor,
+                        dist_lengths: torch.Tensor):
+    """Batched 15-bit decode tables: ``(B, N)`` litlen and ``(B, M)``
+    distance code lengths -> ``(B, 2**15)`` int32 tables each, on the
+    lengths' device; row b equals ``decode_table(lengths[b], 15)``.  An
+    empty distance alphabet gives an all-invalid (0) table."""
+    return (_tables15(lit_lengths), _tables15(dist_lengths))
+
+
+def _tables15(lengths: torch.Tensor) -> torch.Tensor:
+    """:func:`decode_table` at 15 bits for every row of ``lengths``
+    (int32 throughout: a (B, 2**15) step is 128 KiB a row)."""
+    bits = MAX_BITWIDTH
+    dev = lengths.device
+    ln = lengths.to(torch.int64)
+    bsz, n = ln.shape
+    levels = torch.arange(1, bits + 1, device=dev)
+    counts = (ln[:, :, None] == levels).sum(dim=1)          # (B, 15)
+    offsets = (torch.cumsum(counts, dim=1) - counts).to(torch.int32)
+    firsts = torch.zeros_like(counts)
+    carry = torch.zeros(bsz, dtype=torch.int64, device=dev)
+    for i in range(1, bits):
+        carry = (carry + counts[:, i - 1]) << 1
+        firsts[:, i] = carry
+    firsts, counts = firsts.to(torch.int32), counts.to(torch.int32)
+    key = torch.where(ln > 0, ln, 99) * n + torch.arange(n, device=dev)
+    sym_by_rank = torch.argsort(key, dim=1)
+    rev = torch.from_numpy(_bit_reverse(np.arange(1 << bits, dtype=np.int64),
+                                        bits).astype(np.int32)).to(dev)
+    best_width = torch.zeros((bsz, 1 << bits), dtype=torch.int32,
+                             device=dev)
+    best_rank = torch.zeros_like(best_width)
+    for lv in range(1, bits + 1):
+        rel = (rev >> (bits - lv))[None, :] - firsts[:, lv - 1:lv]
+        ok = ((rel >= 0) & (rel < counts[:, lv - 1:lv])
+              & (best_width == 0))
+        best_width = torch.where(ok, lv, best_width)
+        best_rank = torch.where(ok, offsets[:, lv - 1:lv] + rel, best_rank)
+    sym = torch.gather(sym_by_rank, 1,
+                       best_rank.clamp(0, n - 1).to(torch.int64))
+    return torch.where(best_width > 0, (sym << 4) | best_width,
+                       0).to(torch.int32)

@@ -17,10 +17,17 @@ The kernel merges the litlen and distance roots with the length and
 distance rows into one word per entry before it decodes;
 :func:`kernel_tables` builds the same words, and :func:`kernel_info`
 gives how the kernel compiled.
+
+``debug=True`` (by default ``LIBFLATE_DEBUG_CHECKS=1``, read at each
+call, as the reference reads it when it traces) runs the debug-checks
+form: a token whose cursor has left the window the reference would have
+staged for its slot (``d_words`` words from the slot's start bit rounded
+down to a word) carries :data:`DEBUG_POISON`.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -30,19 +37,22 @@ from .tables import DIST_BASE, DIST_EXTRA, DIST_ROOT_BITS, LEN_BASE, \
     LEN_EXTRA, ROOT_BITS
 
 SYNC_TOKENS = 256                 # K: tokens per sync chunk (encoder side)
+DEBUG_POISON = 1 << 30            # the debug form's mark on a token
 #: length base/extra then distance base/extra, as the kernel reads them
 ROWS = np.concatenate([LEN_BASE, LEN_EXTRA, DIST_BASE, DIST_EXTRA])
 _ROWS_ON: dict = {}                 # device -> ROWS uploaded once
 
 
-def kernel_info(root_bits: int = 10) -> dict:
-    """The kernel as compiled: registers, static shared, spill and
-    dynamic shared bytes (the merged litlen root at ``root_bits``),
-    resident blocks per SM at that size and threads per block."""
+def kernel_info(root_bits: int = 10, debug: bool = False) -> dict:
+    """The kernel (``debug``: its debug-checks form) as compiled:
+    registers, static shared, spill and dynamic shared bytes (the merged
+    litlen root at ``root_bits``), resident blocks per SM at that size and
+    threads per block."""
+    fn = "lf_sync_debug_info" if debug else "lf_sync_info"
     out = (ctypes.c_int * 6)()
-    err = _build.load().lf_sync_info(root_bits, out)
+    err = getattr(_build.load(), fn)(root_bits, out)
     if err != 0:
-        raise RuntimeError(f"lf_sync_info failed with error {err}")
+        raise RuntimeError(f"{fn} failed with error {err}")
     return dict(zip(("regs", "static_smem", "spill_bytes", "dynamic_smem",
                      "blocks_per_sm", "threads"), out))
 
@@ -104,8 +114,27 @@ def _window(bytes_: torch.Tensor, cursor: torch.Tensor) -> torch.Tensor:
     return win >> (cursor & 7)
 
 
+def debug_checks(debug: bool | None = None) -> bool:
+    """``debug``, or when None whether ``LIBFLATE_DEBUG_CHECKS`` is "1"."""
+    if debug is None:
+        return os.environ.get("LIBFLATE_DEBUG_CHECKS") == "1"
+    return bool(debug)
+
+
+def staged_words(start_bits: np.ndarray, ends: np.ndarray) -> int:
+    """The reference's staging depth for a launch's slots
+    (``libflate_tpu/formats/pgzf.py:665-668``): words enough for the
+    longest slot's bits from its start word, 64 bits of slack, a multiple
+    of 32, at least 32.  ``start_bits`` and ``ends`` are absolute bits."""
+    ext = np.asarray(ends, np.int64) - np.asarray(start_bits, np.int64)
+    need = int(((ext + (np.asarray(start_bits, np.int64) & 31) + 64 + 31)
+                >> 5).max(initial=0))
+    return max(32, -(-need // 32) * 32)
+
+
 def sync_decode_plain(words, start_bits, counts, lit_table, dist_table,
-                      k_tokens: int = SYNC_TOKENS, root_bits: int = 10):
+                      k_tokens: int = SYNC_TOKENS, root_bits: int = 10,
+                      debug: bool = False, d_words: int = 0):
     """Plain PyTorch version of the kernel: all slots step in lockstep."""
     dev = words.device
     bytes_ = words.view(torch.uint8)
@@ -114,6 +143,7 @@ def sync_decode_plain(words, start_bits, counts, lit_table, dist_table,
     lb, le, db, de = (torch.from_numpy(r).to(dev, torch.int64)
                       for r in (LEN_BASE, LEN_EXTRA, DIST_BASE, DIST_EXTRA))
     cursor = start_bits.to(torch.int64).clone()
+    limit = (cursor & ~31) + 32 * d_words - 55
     cnt = counts.to(torch.int64)
     out = torch.zeros((cursor.numel(), k_tokens), dtype=torch.int32,
                       device=dev)
@@ -135,6 +165,8 @@ def sync_decode_plain(words, start_bits, counts, lit_table, dist_table,
         a = torch.where(is_len, length, sym)
         b = torch.where(is_len, dst, 0)
         tok = a.clamp(0, 511) | (b.clamp(0, 65535) << 9)
+        if debug:
+            tok = torch.where(cursor > limit, tok | DEBUG_POISON, tok)
         active = i < cnt
         out[:, i] = torch.where(active, tok, 0).to(torch.int32)
         cursor += torch.where(active, torch.where(is_len, k3 + dnx, width),
@@ -145,7 +177,8 @@ def sync_decode_plain(words, start_bits, counts, lit_table, dist_table,
 def sync_decode(words: torch.Tensor, start_bits: torch.Tensor,
                 counts: torch.Tensor, lit_table: torch.Tensor,
                 dist_table: torch.Tensor, k_tokens: int = SYNC_TOKENS,
-                root_bits: int = 10) -> torch.Tensor:
+                root_bits: int = 10, debug: bool | None = None,
+                d_words: int = 0) -> torch.Tensor:
     """Decode independent K-token chunks of a DEFLATE stream.
 
     Args:
@@ -157,14 +190,21 @@ def sync_decode(words: torch.Tensor, start_bits: torch.Tensor,
         lit_table: (2**root_bits,) int32 shared litlen root,
             ``(sym << 4) | width`` (``ops.huffman.decode_table``).
         dist_table: (256,) int32 shared 8-bit distance root.
+        debug: run the debug-checks form (None: ``LIBFLATE_DEBUG_CHECKS``).
+        d_words: the debug form's window, in words (:func:`staged_words`).
 
     Returns (S, k_tokens) int32: token i of slot s at ``out[s, i]``,
-    packed ``a | b << 9``; entries past a slot's count are 0.  CPU tensors
+    packed ``a | b << 9``, with :data:`DEBUG_POISON` set in the debug form
+    on a token that starts past ``32 * d_words - 55`` bits from its
+    slot's start word; entries past a slot's count are 0.  CPU tensors
     run :func:`sync_decode_plain`; CUDA tensors launch the kernel once.
     """
     s = start_bits.numel()
+    debug = debug_checks(debug)
     if not 7 <= root_bits <= ROOT_BITS:
         raise ValueError(f"root_bits={root_bits} outside [7, {ROOT_BITS}]")
+    if debug and d_words < 1:
+        raise ValueError("sync_decode: the debug form needs d_words >= 1")
     if (words.dtype != torch.int32 or start_bits.dtype != torch.int64
             or counts.dtype != torch.int32 or counts.shape != (s,)
             or lit_table.shape != (1 << root_bits,)
@@ -172,7 +212,8 @@ def sync_decode(words: torch.Tensor, start_bits: torch.Tensor,
         raise ValueError("sync_decode: bad argument dtypes or shapes")
     if words.device.type == "cpu":
         return sync_decode_plain(words, start_bits, counts, lit_table,
-                                 dist_table, k_tokens, root_bits)
+                                 dist_table, k_tokens, root_bits, debug,
+                                 d_words)
     if words.device.type != "cuda":
         raise ValueError(f"sync_decode: unsupported device {words.device}")
     args = [t.contiguous() for t in (words, start_bits, counts,
@@ -186,11 +227,20 @@ def sync_decode(words: torch.Tensor, start_bits: torch.Tensor,
     # the kernel loads aligned 16-byte quads, at least one whole
     if w.data_ptr() % 16 or w.numel() < 4:
         w = torch.nn.functional.pad(w, (0, max(4 - w.numel(), 0)))
-    _build.launch("lf_sync_decode", w.data_ptr(), w.numel(), sb.data_ptr(),
-                  cnt.data_ptr(), lit.data_ptr(), dist.data_ptr(),
-                  rows.data_ptr(), root_bits, out.data_ptr(), s, k_tokens)
-    sync_decode.launches += 1
+    if debug:
+        _build.launch("lf_sync_decode_debug", w.data_ptr(), w.numel(),
+                      sb.data_ptr(), cnt.data_ptr(), lit.data_ptr(),
+                      dist.data_ptr(), rows.data_ptr(), root_bits, d_words,
+                      out.data_ptr(), s, k_tokens)
+        sync_decode.debug_launches += 1
+    else:
+        _build.launch("lf_sync_decode", w.data_ptr(), w.numel(),
+                      sb.data_ptr(), cnt.data_ptr(), lit.data_ptr(),
+                      dist.data_ptr(), rows.data_ptr(), root_bits,
+                      out.data_ptr(), s, k_tokens)
+        sync_decode.launches += 1
     return out
 
 
-sync_decode.launches = 0
+sync_decode.launches = 0            # the default kernel
+sync_decode.debug_launches = 0      # its debug-checks form

@@ -1,9 +1,11 @@
-"""Host-side DEFLATE pieces of the port: the error type, the encode
+"""Host-side DEFLATE pieces of the port: the error types, the encode
 options (``EncodeOptions``, ``libflate_tpu/serial/deflate.py:36-55``), the
 stored-block writer (counterpart of ``deflate(raw,
-EncodeOptions(block_type="stored"))``) and the block-header parser that
+EncodeOptions(block_type="stored"))``), the block-header parser that
 stages the device decode (counterpart of the native engine's
-``parse_dyn_headers``, ``libflate_tpu/native/__init__.py:202``).
+``parse_dyn_headers``, ``libflate_tpu/native/__init__.py:202``), and what
+``inflate_device`` reads a block header with: ``InflateResult`` (``:323``)
+and ``read_dynamic_header_lengths`` (``:160``).
 """
 from __future__ import annotations
 
@@ -13,10 +15,23 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..spec import constants as C
+from .bitio import BitReader
 
 
 class DeflateError(ValueError):
     """Malformed DEFLATE data, or an encode that cannot be written."""
+
+
+class HuffmanError(ValueError):
+    """An invalid code in the code-length code of a dynamic header (the
+    reference's ``HuffmanError``, ``libflate_tpu/serial/huffman.py:23``)."""
+
+
+@dataclass
+class InflateResult:
+    data: bytearray
+    #: bit offset one past the final block's end (before byte alignment)
+    end_bit: int = 0
 
 
 @dataclass
@@ -58,104 +73,6 @@ def deflate_stored(data: bytes) -> bytes:
             return bytes(out)
 
 
-def _fixed_litlen_lengths() -> np.ndarray:
-    lens = np.empty(288, np.int32)
-    lens[0:144], lens[144:256], lens[256:280], lens[280:288] = 8, 9, 7, 8
-    return lens
-
-
-class _Bits:
-    """LSB-first reader over a byte string; peeks past the end read 0,
-    consuming past the end sets ``overrun``."""
-
-    def __init__(self, data: bytes):
-        self.v = int.from_bytes(data, "little")
-        self.n = 8 * len(data)
-        self.pos = 0
-        self.overrun = False
-
-    def peek(self, k: int) -> int:
-        return (self.v >> self.pos) & ((1 << k) - 1)
-
-    def read(self, k: int) -> int:
-        if self.pos + k > self.n:
-            self.overrun = True
-            return 0
-        r = self.peek(k)
-        self.pos += k
-        return r
-
-
-def _clc_table(lengths) -> list | None:
-    """7-bit LSB-first decode table of the code-length code:
-    ``(sym << 4) | width`` per index, 0 where no code starts; None when
-    the lengths are oversubscribed."""
-    counts = [0] * 16
-    for ln in lengths:
-        if ln:
-            counts[ln] += 1
-    firsts, code, total = [0] * 16, 0, 0
-    for ln in range(1, 8):
-        code = (code + counts[ln - 1]) << 1
-        firsts[ln] = code
-        total += counts[ln] << (7 - ln)
-    if total > 128:
-        return None
-    table = [0] * 128
-    for s, ln in enumerate(lengths):
-        if not ln:
-            continue
-        c = firsts[ln]
-        firsts[ln] += 1
-        rev = int(f"{c:0{ln}b}"[::-1], 2)
-        for idx in range(rev, 128, 1 << ln):
-            table[idx] = (s << 4) | ln
-    return table
-
-
-def _parse_dynamic(r: _Bits, lit: np.ndarray, dist: np.ndarray) -> bool:
-    """Fill ``lit`` (>= 286) and ``dist`` (30) from a dynamic header at
-    the reader's position; False on any malformation."""
-    hlit, hdist, hclen = r.read(5) + 257, r.read(5) + 1, r.read(4) + 4
-    if r.overrun or hlit > 286 or hdist > 30:
-        return False
-    clc = [0] * C.MAX_CLC_SYMBOLS
-    for k in range(hclen):
-        clc[int(C.CLC_ORDER[k])] = r.read(3)
-    table = _clc_table(clc)
-    if r.overrun or table is None:
-        return False
-    total = hlit + hdist
-    seq: list[int] = []
-    while len(seq) < total:
-        e = table[r.peek(7)]
-        if not e:
-            return False
-        r.read(e & 15)
-        sym = e >> 4
-        if sym < 16:
-            seq.append(sym)
-            continue
-        if sym == 16:
-            if not seq:
-                return False
-            run, v = 3 + r.read(2), seq[-1]
-        else:
-            run, v = (3 + r.read(3), 0) if sym == 17 else (11 + r.read(7), 0)
-        if len(seq) + run > total:
-            return False
-        seq.extend([v] * run)
-        if r.overrun:
-            return False
-    if r.overrun:
-        return False
-    lit[:] = 0
-    dist[:] = 0
-    lit[:hlit] = seq[:hlit]
-    dist[:hdist] = seq[hlit:]
-    return bool(lit[C.END_OF_BLOCK])
-
-
 #: a dynamic header is at most 3 + 14 + 19*3 + 316*14 bits < 600 bytes
 _HEADER_BYTES = 1024
 
@@ -177,23 +94,115 @@ def parse_block_headers(bodies: list[bytes]):
     flags = np.zeros(b, np.int32)
     seen: list[tuple[int, int, int]] = []    # (n_bits, bits, first member)
     for i, body in enumerate(bodies):
-        r = _Bits(body[:_HEADER_BYTES])
-        hit = next((j for nb, v, j in seen
-                    if nb <= r.n and r.peek(nb) == v), None)
+        head = body[:_HEADER_BYTES]
+        v = int.from_bytes(head, "little")
+        hit = next((j for nb, bits, j in seen
+                    if nb <= 8 * len(head) and v & ((1 << nb) - 1) == bits),
+                   None)
         if hit is not None:
             lit[i], dist[i] = lit[hit], dist[hit]
             starts[i], flags[i] = starts[hit], flags[hit]
             continue
-        final, btype = r.read(1), r.read(2)
-        if r.overrun or btype == 3:
-            raise DeflateError(f"bad block header in member {i}")
+        r = BitReader(head)
+        try:
+            final, btype = r.read_bits(1), r.read_bits(2)
+            if btype == 3:
+                raise DeflateError("reserved block type 0b11")
+            if btype == C.BTYPE_DYNAMIC:
+                lit[i, :C.MAX_LITLEN_SYMBOLS], dist[i] = \
+                    read_dynamic_header_lengths(r)
+            elif btype == C.BTYPE_FIXED:
+                lit[i] = C.fixed_litlen_lengths()
+                dist[i] = C.fixed_dist_lengths()
+        except (DeflateError, HuffmanError, EOFError) as e:
+            raise DeflateError(f"bad block header in member {i}") from e
         flags[i] = final | (btype << 1)
-        if btype == C.BTYPE_DYNAMIC:
-            if not _parse_dynamic(r, lit[i], dist[i]):
-                raise DeflateError(f"bad block header in member {i}")
-        elif btype == C.BTYPE_FIXED:
-            lit[i] = _fixed_litlen_lengths()
-            dist[i] = 5
-        starts[i] = r.pos
-        seen.append((r.pos, r.v & ((1 << r.pos) - 1), i))
+        starts[i] = r.bit_position
+        seen.append((r.bit_position, v & ((1 << r.bit_position) - 1), i))
     return lit, dist, starts, flags
+
+
+def _clc_decoder(lengths: np.ndarray):
+    """(table, max_len) of the code-length code, built as the reference's
+    ``HuffmanDecoder`` builds it (``libflate_tpu/serial/huffman.py:128``):
+    canonical codes, each written into every index its reversed bits
+    start; DeflateError for an empty code or two codes on one index."""
+    max_len = int(lengths.max(initial=0))
+    if max_len == 0:
+        raise DeflateError("bad code-length code: empty Huffman code set")
+    bl_count = np.bincount(lengths, minlength=max_len + 1)
+    bl_count[0] = 0
+    nxt, code = [0] * (max_len + 1), 0
+    for ln in range(1, max_len + 1):
+        code = (code + int(bl_count[ln - 1])) << 1
+        nxt[ln] = code
+    table = [-1] * (1 << max_len)
+    for sym, ln in enumerate(lengths.tolist()):
+        if not ln:
+            continue
+        c, nxt[ln] = nxt[ln], nxt[ln] + 1
+        rev = int(f"{c & ((1 << ln) - 1):0{ln}b}"[::-1], 2)
+        for idx in range(rev, 1 << max_len, 1 << ln):
+            if table[idx] != -1:
+                raise DeflateError("bad code-length code: conflicting "
+                                   "Huffman code lengths")
+            table[idx] = (sym << 4) | ln
+    return table, max_len
+
+
+def read_dynamic_header_lengths(r) -> tuple[np.ndarray, np.ndarray]:
+    """Parse a dynamic block header at a :class:`..serial.bitio.BitReader`'s
+    cursor: HLIT / HDIST / HCLEN and the run-length coded code lengths.
+    Returns (286,) and (30,) int32 lengths, zero past HLIT / HDIST.
+
+    Raises DeflateError for HLIT > 286, HDIST > 30, an empty or
+    over-subscribed code-length code, a repeat with nothing to repeat or
+    past the table, and an end-of-block symbol without a code;
+    HuffmanError for a code-length code word that starts no code;
+    EOFError at the end of the stream.
+    """
+    hlit = r.read_bits(5) + 257
+    hdist = r.read_bits(5) + 1
+    hclen = r.read_bits(4) + 4
+    if hlit > C.MAX_LITLEN_SYMBOLS:
+        raise DeflateError(f"HLIT too big: {hlit}")
+    if hdist > C.MAX_DIST_SYMBOLS:
+        raise DeflateError(f"HDIST too big: {hdist}")
+    ordered = np.zeros(C.MAX_CLC_SYMBOLS, dtype=np.int32)
+    for k in range(hclen):
+        ordered[k] = r.read_bits(3)
+    clc_lengths = np.zeros(C.MAX_CLC_SYMBOLS, dtype=np.int32)
+    clc_lengths[C.CLC_ORDER] = ordered
+    table, max_len = _clc_decoder(clc_lengths)
+
+    total = hlit + hdist
+    lengths = np.zeros(total, dtype=np.int32)
+    i = 0
+    while i < total:
+        entry = table[r.peek_bits(max_len)]
+        if entry < 0:
+            raise HuffmanError("invalid Huffman code in stream")
+        r.skip_bits(entry & 15)
+        sym = entry >> 4
+        if sym < 16:
+            lengths[i] = sym
+            i += 1
+            continue
+        if sym == 16:
+            if i == 0:
+                raise DeflateError("repeat code 16 with no previous length")
+            run = 3 + r.read_bits(2)
+        else:
+            run = 3 + r.read_bits(3) if sym == 17 else 11 + r.read_bits(7)
+        if i + run > total:
+            raise DeflateError("code-length repeat overflows table")
+        if sym == 16:
+            lengths[i:i + run] = lengths[i - 1]
+        i += run
+    lit = np.zeros(C.MAX_LITLEN_SYMBOLS, dtype=np.int32)
+    lit[:hlit] = lengths[:hlit]
+    dist = np.zeros(C.MAX_DIST_SYMBOLS, dtype=np.int32)
+    dist[:hdist] = lengths[hlit:]
+    if lit[C.END_OF_BLOCK] == 0:
+        raise DeflateError("end-of-block symbol has no code")
+    return lit, dist

@@ -21,6 +21,7 @@ MAX_DISTANCE = 32768
 DEFAULT_BLOCK_SIZE = 1 << 20
 
 MAX_STORED_BLOCK = 0xFFFF    # stored block LEN is a u16
+WINDOW_SIZE = 32768          # LZ77 history a block may reach into
 
 LENGTH_BASE = np.array(
     [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31,
@@ -74,6 +75,23 @@ def _dist_lut():
 
 LENGTH_TO_CODE, LENGTH_TO_NEXTRA, LENGTH_TO_EXTRA = _length_lut()
 DIST_TO_CODE, DIST_TO_NEXTRA, DIST_TO_EXTRA = _dist_lut()
+
+
+
+def fixed_litlen_lengths() -> np.ndarray:
+    """Code lengths of the 288-symbol fixed literal/length alphabet."""
+    lens = np.empty(288, dtype=np.int32)
+    lens[0:144] = 8
+    lens[144:256] = 9
+    lens[256:280] = 7
+    lens[280:288] = 8
+    return lens
+
+
+def fixed_dist_lengths() -> np.ndarray:
+    """Code lengths of the 30-symbol fixed distance alphabet (5 bits)."""
+    return np.full(MAX_DIST_SYMBOLS, 5, dtype=np.int32)
+
 
 BTYPE_STORED = 0
 BTYPE_FIXED = 1

@@ -10,12 +10,14 @@ Every comparison is exact equality: the codec is integer.
 """
 import gzip
 import pathlib
+import struct
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import member_codes, strip_sync_index
+from chip_smoke import (decode_hard_cases, generic_shard, member_codes,
+                        poison_ls, strip_sync_index)
 from libflate_tpu_torch.formats import pgzf
 from libflate_tpu_torch.ops import (decode, deflate_decode, deflate_encode,
                                     device_expand, expand, fields, gather,
@@ -1581,3 +1583,147 @@ def test_gather_two_kernel_info(dev):
     assert staged["max_staged_win"] == 64
     for info in (staged, direct):
         assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 4
+
+
+def _decode_args(case, dev):
+    """A ``decode_hard_cases`` entry as ``decode_symbols`` arguments on
+    ``dev``."""
+    from libflate_tpu_torch.ops.huffman import tables_from_lengths
+    words, starts, lit, dist, tabs, max_tokens, chunk = case
+    if tabs is None:
+        lt, dt = tables_from_lengths(torch.from_numpy(lit).to(dev),
+                                     torch.from_numpy(dist).to(dev))
+        tidx = None
+    else:
+        lt, dt = (torch.from_numpy(t).to(dev) for t in tabs[:2])
+        tidx = torch.from_numpy(tabs[2]).to(dev) if len(tabs) > 2 else None
+    return (torch.from_numpy(words).to(dev), torch.from_numpy(starts).to(dev),
+            lt, dt, max_tokens, chunk, tidx)
+
+
+def test_decode_symbols_kernel_matches_plain_on_hard_cases(dev):
+    """Table holes, an incomplete code, the fixed code's 286 / 287, an
+    empty final block, streams cut at max_tokens (chunked and not),
+    start bits off the word, random words under any-int32 tables with a
+    table index: all five outputs bit-identical."""
+    for name, case in decode_hard_cases().items():
+        args = _decode_args(case, dev)
+        before = deflate_decode.decode_symbols.launches
+        got = deflate_decode.decode_symbols(*args)
+        assert deflate_decode.decode_symbols.launches == before + 1
+        want = deflate_decode.decode_symbols_plain(*args)
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w), name
+
+
+def test_decode_symbols_kernel_at_member_width(dev):
+    """Four 64 KiB members of the generic shard (zlib level 9 bodies)."""
+    plain = gzip.decompress((DATA / "pgzf_sync_zipf_2m.pgz").read_bytes())
+    shard = generic_shard(plain[:4 * 65536])
+    refs = pgzf.index_members(shard)
+    bodies = [shard[r.body:r.end - 8] for r in refs]
+    from libflate_tpu_torch.ops.huffman import tables_from_lengths
+    from libflate_tpu_torch.serial.deflate import parse_block_headers
+    lit, dist, starts, flags = parse_block_headers(bodies)
+    assert (flags == 5).all()
+    words = np.zeros((4, 4 * (65536 // 4 + 512)), np.uint8)
+    for i, b in enumerate(bodies):
+        words[i, :len(b)] = np.frombuffer(b, np.uint8)
+    lt, dt = tables_from_lengths(torch.from_numpy(lit).to(dev),
+                                 torch.from_numpy(dist).to(dev))
+    args = (torch.from_numpy(words.view("<i4")).to(dev),
+            torch.from_numpy(starts.astype(np.int32)).to(dev), lt, dt,
+            65538)
+    got = deflate_decode.decode_symbols(*args)
+    want = deflate_decode.decode_symbols_plain(*args)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    assert not got[4].any()
+
+
+def test_decode_symbols_kernel_info(dev):
+    info = deflate_decode.kernel_info()
+    assert info["spill_bytes"] == 0 and info["threads"] == 64
+
+
+def test_sync_decode_debug_kernel_matches_plain(group):
+    """The debug form: its plain version's tokens and marks, and the
+    default kernel's tokens under the marks; at the staged depth no token
+    of the clean fixture is marked, at 32 words some are."""
+    base = _sd_args(group)
+    plain_default = sd.sync_decode(*base, debug=False)
+    for d_words, marked in ((group["d_words"], False), (32, True)):
+        before = (sd.sync_decode.launches, sd.sync_decode.debug_launches)
+        got = sd.sync_decode(*base, debug=True, d_words=d_words)
+        assert (sd.sync_decode.launches,
+                sd.sync_decode.debug_launches) == (before[0], before[1] + 1)
+        _eq(got, sd.sync_decode_plain(*base, debug=True, d_words=d_words))
+        _eq(got & ~sd.DEBUG_POISON, plain_default)
+        assert bool(((got & sd.DEBUG_POISON) != 0).any()) == marked
+
+
+def test_sync_decode_debug_flag_on_a_poisoned_index(dev, monkeypatch):
+    """K raised to 1024 in the first member's LS index: the debug form
+    marks tokens as its plain version does, and decompress raises
+    DeflateError with LIBFLATE_DEBUG_CHECKS=1; the clean stream decodes
+    with it set."""
+    from libflate_tpu_torch.serial.deflate import DeflateError
+    small = (DATA / "pgzf_sync_zipf_small.pgz").read_bytes()
+    bad = poison_ls(small)
+    g = pgzf._prepare_sync_device(bad, dev)[0]
+    args = _sd_args(g)
+    got = sd.sync_decode(*args, debug=True, d_words=g["d_words"])
+    _eq(got, sd.sync_decode_plain(*args, debug=True, d_words=g["d_words"]))
+    assert ((got & sd.DEBUG_POISON) != 0).any()
+    monkeypatch.setenv("LIBFLATE_DEBUG_CHECKS", "1")
+    assert pgzf.decompress(small, device="cuda") == gzip.decompress(small)
+    with pytest.raises(DeflateError, match="invariant"):
+        pgzf.decompress(bad, device="cuda")
+
+
+def _decompress_streams():
+    small = (DATA / "pgzf_sync_zipf_small.pgz").read_bytes()
+    enc = (DATA / "pgzf_encode_small.pgz").read_bytes()
+    plain = gzip.decompress(enc)
+    return {"sync": small, "shared": strip_sync_index(small),
+            "generic": generic_shard(plain[:40000], 8192),
+            "foreign": gzip.compress(plain[:30000]) + gzip.compress(b"x"),
+            "sync with stored members": enc}
+
+
+@pytest.mark.parametrize("name", ["sync", "shared", "generic", "foreign",
+                                  "sync with stored members"])
+def test_decompress_on_cuda_each_branch(dev, name):
+    data = _decompress_streams()[name]
+    before = deflate_decode.decode_symbols.launches
+    out = pgzf.decompress(data, verify=True, device="cuda")
+    assert out == gzip.decompress(data)
+    assert out == pgzf.decompress(data, verify=True, device="cpu")
+    assert (deflate_decode.decode_symbols.launches > before) == (
+        name == "generic")
+
+
+def test_decompress_on_cuda_generic_branch_forced(dev, monkeypatch):
+    monkeypatch.setenv("LIBFLATE_NO_SYNC", "1")
+    monkeypatch.setenv("LIBFLATE_NO_SPEC", "1")
+    data = (DATA / "pgzf_sync_zipf_small.pgz").read_bytes()
+    before = deflate_decode.decode_symbols.launches
+    assert pgzf.decompress(data, device="cuda") == gzip.decompress(data)
+    assert deflate_decode.decode_symbols.launches == before + 1
+
+
+def test_inflate_device_on_cuda(dev):
+    import zlib
+    plain = gzip.decompress((DATA / "pgzf_encode_small.pgz").read_bytes())
+    c = zlib.compressobj(6, zlib.DEFLATED, -15, 1)
+    multi = c.compress(plain[:60000]) + c.flush()
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    # a dynamic block, then a final stored block at the byte boundary
+    stored = (c.compress(plain[:5000]) + c.flush(zlib.Z_FULL_FLUSH)
+              + b"\x01" + struct.pack("<HH", 4000, 4000 ^ 0xFFFF)
+              + plain[5000:9000])
+    for raw, want in ((multi, plain[:60000]), (stored, plain[:9000])):
+        res = deflate_decode.inflate_device(raw, device="cuda")
+        assert bytes(res.data) == want
+        assert res.end_bit == deflate_decode.inflate_device(
+            raw, device="cpu").end_bit

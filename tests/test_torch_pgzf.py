@@ -176,6 +176,16 @@ assert torch.equal(spec_out, out) and torch.equal(spec_len, lengths)
 data = bytes(range(256)) * 8 + b"abc" * 2000
 import gzip
 assert gzip.decompress(pgzf.compress(data, 1024, device="cpu")) == data
+# host output through the sync and generic branches, and inflate_device
+import os, zlib
+assert pgzf.decompress(stream, device="cpu") == gzip.decompress(stream)
+os.environ["LIBFLATE_NO_SYNC"] = os.environ["LIBFLATE_NO_SPEC"] = "1"
+assert pgzf.decompress(stream, device="cpu") == gzip.decompress(stream)
+del os.environ["LIBFLATE_NO_SYNC"], os.environ["LIBFLATE_NO_SPEC"]
+from libflate_tpu_torch.ops.deflate_decode import inflate_device
+raw = zlib.compressobj(6, zlib.DEFLATED, -15, 1)
+raw = raw.compress(data[:3000]) + raw.flush()
+assert bytes(inflate_device(raw, device="cpu").data) == data[:3000]
 # the foreign-stream path: stdlib gzip (no index) and a stored member
 import numpy as np
 rnd = np.random.default_rng(0).integers(0, 256, 3000, np.uint8).tobytes()
@@ -203,8 +213,10 @@ def test_imports_and_runs_with_jax_blocked(small):
     """Every port module and chip_smoke.py import, decode (through the
     sync path, with the LS index stripped the speculative path, and stdlib
     gzip and stored members the foreign-stream path with its host token
-    decoder) and encode (by default, in chain-8 quality mode and with the
-    hash matcher) with both JAX and the reference package blocked."""
+    decoder; to bytes by ``decompress`` through its sync and generic
+    branches; a raw stream by ``inflate_device``) and encode (by default,
+    in chain-8 quality mode and with the hash matcher) with both JAX and
+    the reference package blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
