@@ -111,6 +111,37 @@ Phases, each of which raises on failure (exit code != 0):
    and the foreign path's host token decode split out), each with the
    card's name and power limit.
 
+10. the generic device engine (``ops/pipeline.deflate_device`` and the
+   containers on the ``cuda`` engine): (10a) byte identity with every
+   committed reference stream (``DEFLATE_FIXTURES``, written by
+   ``scripts/make_deflate_device_fixture.py`` from the JAX reference's
+   TPU branches), each read back by stdlib zlib / gzip and by the port's
+   engine, with its kernels counted; (10b) the 8 MiB batch (phase 6's
+   first 128 x 64 KiB): its hash candidates equal phase 6b's (the kernel
+   against its plain version there), the per-member ``token_fields`` on
+   its tokens, and ``parse.chunk_exits`` / ``parse.walk_emit`` at cap
+   512 on the jump arrays the hash branch and the sort branch build from
+   it, each against its plain version; (10c) the main path
+   ``deflate.compress(8 MiB, engine="cuda")`` counted (``hash_candidates``,
+   ``token_fields``, the parse kernels once each), read back by zlib and
+   by ``deflate.decompress(engine="cuda")`` (128 ``decode_symbols``
+   launches), and ``decode_symbols`` on the stream's first block, at the
+   token budget ``inflate_device`` gives it, against its plain version;
+   (10d) the 64 MiB through the sort branch, counted; (10e)
+   ``gzip.compress`` / ``zlib.compress`` of 8 MiB and the engine's
+   ``crc32`` / ``adler32`` of 64 MiB against the standard library; (10f)
+   ``pgzf.compress(64 MiB, block_type="fixed")``, ``hash_candidates``
+   launched 8 times, read back by gzip and ``pgzf.decompress``; (10g) a
+   stdlib gzip stream with a 2 MiB stored member through
+   ``pgzf.decompress(device="cuda")`` (the gzip fallback) and a stream
+   cut in its first block header raising EOFError; (10h) host-clock times
+   (median of 3) of those calls, the 8 MiB batch's stages (CUDA events)
+   and peak device memory, each with the card's name and power limit.
+   The launches of the main-path runs (the 8 MiB and 64 MiB compresses,
+   the 8 MiB decode, pgzf fixed blocks) are added to each counted
+   kernel's row: ``hash_candidates``, ``token_fields``, the parse
+   kernels and ``decode_symbols``.
+
 Kernels are keyed by module and function (``parse.walk_emit`` and
 ``decode.walk_emit`` are two kernels).
 
@@ -148,6 +179,21 @@ REFERENCE_OPTIONS = {
     "pgzf_encode_chain8_w2048_8k.pgz": ({**QUALITY, "window_size": 2048},
                                         "sort"),
     "pgzf_encode_hash_small.pgz": (None, "hash"),
+}
+#: the generic engine's committed reference streams, written by
+#: scripts/make_deflate_device_fixture.py: name -> (call, EncodeOptions
+#: fields, deflate_device's block size or pgzf's member size)
+DEFLATE_FIXTURES = {
+    # 3 blocks of 64 KiB: the sort candidates, the token-field kernel
+    "deflate_device_sort.bin": ("deflate", {}, None),
+    # 128 blocks of 1 KiB: the hash kernel and the token-field kernel
+    "deflate_device_hash.bin": ("deflate", {}, 1024),
+    "deflate_device_fixed.bin": ("deflate", {"block_type": "fixed"}, 1024),
+    "deflate_device_none.bin": ("deflate", {"matcher": "none"}, None),
+    "deflate_device_member.gz": ("gzip", {}, None),
+    "deflate_device_stream.zlib": ("zlib", {}, None),
+    # 134 members of 1 KiB, two batches: the hash kernel, fixed blocks
+    "deflate_device_fixed.pgz": ("pgzf", {"block_type": "fixed"}, 1024),
 }
 
 
@@ -325,6 +371,80 @@ def decode_hard_cases():
         rnd, np.array([0, 31, 600], np.int32), None, None,
         any_tabs + (np.array([1, 0, 1], np.int32),), 300, 100)
     return cases
+
+
+def first_block_decode_args(stream: bytes, dev):
+    """``decode_symbols``' operands for the first block (fixed or
+    dynamic) of a raw DEFLATE stream, as ``inflate_device``'s first
+    attempt gives them: ((words, start_bit, lit_table, dist_table),
+    max_tokens)."""
+    import numpy as np
+
+    from libflate_tpu_torch.ops import deflate_decode
+    from libflate_tpu_torch.ops.huffman import tables_from_lengths
+    from libflate_tpu_torch.serial.bitio import BitReader
+    from libflate_tpu_torch.serial.deflate import read_dynamic_header_lengths
+    from libflate_tpu_torch.spec import constants as C
+    r = BitReader(stream)
+    r.read_bits(1)
+    btype = r.read_bits(2)
+    if btype == C.BTYPE_DYNAMIC:
+        lit_l, dist_l = read_dynamic_header_lengths(r)
+    elif btype == C.BTYPE_FIXED:
+        lit_l, dist_l = C.fixed_litlen_lengths(), C.fixed_dist_lengths()
+    else:
+        raise ValueError("the first block is not a Huffman block")
+    words = torch.from_numpy(deflate_decode._bytes_to_words(stream).view(
+        np.int32).copy()).to(dev)[None, :]
+    start = torch.tensor([r.bit_position], dtype=torch.int32, device=dev)
+    tables = tables_from_lengths(torch.from_numpy(lit_l[None, :]).to(dev),
+                                 torch.from_numpy(dist_l[None, :]).to(dev))
+    _cap, max_tokens = deflate_decode.token_budget(len(stream))
+    return (words, start) + tuple(tables), max_tokens
+
+
+def fixture_plain(kind: str, stream: bytes) -> bytes:
+    """A DEFLATE_FIXTURES call's stream decoded by the standard library."""
+    if kind in ("gzip", "pgzf"):
+        return gzip.decompress(stream)
+    return zlib.decompress(stream, -15 if kind == "deflate" else 15)
+
+
+def deflate_fixture_stream(kind: str, options: dict, size, plain: bytes,
+                           device: str) -> bytes:
+    """The port's stream of a DEFLATE_FIXTURES entry on ``device`` ("cuda"
+    or "cpu"): ``deflate_device`` at ``size``-byte blocks, a container on
+    the device's engine, or pgzf at ``size``-byte members."""
+    from libflate_tpu_torch.formats import gzip as fgzip
+    from libflate_tpu_torch.formats import pgzf
+    from libflate_tpu_torch.formats import zlib as fzlib
+    from libflate_tpu_torch.ops import pipeline
+    from libflate_tpu_torch.serial.deflate import EncodeOptions
+    opts = EncodeOptions(**options) if options else None
+    if kind == "deflate":
+        return pipeline.deflate_device(plain, opts, device_block_size=size,
+                                       device=device)
+    if kind == "gzip":
+        return fgzip.compress(plain, opts, engine=device)
+    if kind == "zlib":
+        return fzlib.compress(plain, opts, engine=device)
+    return pgzf.compress(plain, member_size=size, options=opts,
+                         device=device)
+
+
+def deflate_fixture_decode(kind: str, stream: bytes, device: str) -> bytes:
+    """A DEFLATE_FIXTURES stream decoded by the port on ``device``."""
+    from libflate_tpu_torch.formats import deflate as fdeflate
+    from libflate_tpu_torch.formats import gzip as fgzip
+    from libflate_tpu_torch.formats import pgzf
+    from libflate_tpu_torch.formats import zlib as fzlib
+    if kind == "deflate":
+        return fdeflate.decompress(stream, engine=device)
+    if kind == "gzip":
+        return fgzip.decompress(stream, engine=device)
+    if kind == "zlib":
+        return fzlib.decompress(stream, engine=device)
+    return pgzf.decompress(stream, device=device)
 
 
 def card() -> str:
@@ -984,8 +1104,8 @@ def main() -> None:
     pm_args = (pm_a, pm_b, pm_tables, pm_nt)
     pm_fv = fields.token_fields(*pm_args)
     pm_fv_p = fields.token_fields_plain(*pm_args)
-    values, widths = pipeline.shared_assemble(
-        *fv, *header, int(stats[2][256]), int(stats[3][256]))
+    values, widths = deflate_encode.assemble_fields(
+        header, fv, stats[2][256], stats[3][256])
     fpad = (-values.shape[1]) % pack.F_CH
     values = torch.nn.functional.pad(values, (0, fpad)).contiguous()
     widths = torch.nn.functional.pad(widths, (0, fpad)).contiguous()
@@ -1845,8 +1965,8 @@ def main() -> None:
         "shared_stats (hist + host codes)": lambda: pipeline.shared_stats(
             a, b, valid),
         "token_fields": lambda: fields.token_fields(a_h, b, tables),
-        "shared_assemble (glue)": lambda: pipeline.shared_assemble(
-            *fv, *header, int(stats[2][256]), int(stats[3][256])),
+        "shared_assemble (glue)": lambda: deflate_encode.assemble_fields(
+            header, fv, stats[2][256], stats[3][256]),
         "chunk_starts (glue)": lambda: pack.chunk_starts(widths),
         "pack_stitch": lambda: pack.pack_stitch(values, widths, cstarts,
                                                 w_out),
@@ -1971,11 +2091,331 @@ def main() -> None:
                len(q_stream) / len(data), options=quality)
     end_to_end("hash profile", len(h_stream) / len(data), matcher="hash")
 
+    # 10. the generic device engine: deflate_device and the raw DEFLATE,
+    # zlib and gzip containers on the "cuda" engine, pgzf's fixed-block
+    # route, and decompress's two repaired faults
+    generic_engine(dev, card_line, data, blocks, nv, hcand, errs, row)
+
     print(json.dumps({"kernels": summary}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def generic_engine(dev, card_line: str, data: bytes, blocks, nv, hcand,
+                   errs: dict, row: dict) -> None:
+    """Phase 10.  ``data``: the 64 MiB encode input; ``blocks``, ``nv``:
+    its first 128 x 64 KiB (phase 6's batch, the 8 MiB here); ``hcand``:
+    their hash candidates (phase 6b, the kernel held against its plain
+    version there).  Adds the main-path launches and the per-member token
+    fields' error to ``row`` / ``errs``."""
+    import numpy as np
+
+    from libflate_tpu_torch import backend
+    from libflate_tpu_torch.formats import deflate as fdeflate
+    from libflate_tpu_torch.formats import gzip as fgzip
+    from libflate_tpu_torch.formats import pgzf
+    from libflate_tpu_torch.formats import zlib as fzlib
+    from libflate_tpu_torch.ops import (bitpack, deflate_decode,
+                                        deflate_encode, fields, lz77, parse,
+                                        pipeline)
+    from libflate_tpu_torch.ops import hash_match as hm
+    from libflate_tpu_torch.serial.deflate import EncodeOptions
+    eng = backend.get("cuda")
+    h_, f_, ce_, we_ = (hm.hash_candidates, fields.token_fields,
+                        parse.chunk_exits, parse.walk_emit)
+    ds_ = deflate_decode.decode_symbols
+    counted_kernels = (h_, f_, ce_, we_, ds_)
+
+    def counted(fn):
+        """``fn()`` with every count set to 0 before it; (result, counts)."""
+        for k in counted_kernels:
+            k.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {kname(k): k.launches for k in counted_kernels}
+
+    def need(counts: dict, what: str, **want) -> None:
+        """Each ``want`` count exactly (None: at least 1)."""
+        for key, n in want.items():
+            got = counts[kname({"hash": h_, "fields": f_, "exits": ce_,
+                                "walk": we_, "decode": ds_}[key])]
+            if (n is None and got < 1) or (n is not None and got != n):
+                raise AssertionError(f"{what}: {key} launched {got} times, "
+                                     f"want {'>= 1' if n is None else n}: "
+                                     f"{counts}")
+
+    def host_ms(fn, reps: int = 3) -> float:
+        walls = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        return statistics.median(walls) * 1e3
+
+    # 10a. byte identity with the committed reference streams, each read
+    # back by stdlib zlib and by the port's engine
+    for fname, (kind, fopts, size) in DEFLATE_FIXTURES.items():
+        want = (DATA / fname).read_bytes()
+        fplain = fixture_plain(kind, want)
+        got, counts = counted(lambda: deflate_fixture_stream(
+            kind, fopts, size, fplain, "cuda"))
+        if got != want:
+            raise AssertionError(f"the cuda engine differs from {fname}")
+        literal = fopts.get("matcher") == "none"
+        need(counts, fname, hash=(None if size == 1024 and not literal
+                                  else 0), fields=None,
+             exits=0 if literal else None, walk=0 if literal else None)
+        back, dcounts = counted(lambda: deflate_fixture_decode(kind, got,
+                                                               "cuda"))
+        if back != fplain:
+            raise AssertionError(f"the port's decode of {fname} differs")
+        need(dcounts, f"{fname} decode", decode=None)
+        log(f"{fname}: {kind} {fopts} at {size}: {len(fplain)} -> "
+            f"{len(want)} bytes byte-identical to the reference, read back "
+            f"by zlib and by the cuda engine; launches {counts}, decode "
+            f"{dcounts}")
+
+    # 10b. the 8 MiB batch's kernels against their plain versions
+    p8 = data[:8 << 20]
+    hc8 = hm.prefix_candidates(blocks)
+    if not torch.equal(hc8, hcand):
+        raise AssertionError("hash candidates differ from phase 6b's")
+    a8, b8, cnt8 = pipeline.tokenize_tail(blocks, nv, hc8)
+    lit_l8, dist_l8 = deflate_encode.block_code_lengths(
+        *deflate_encode.token_histograms(a8, b8, cnt8))
+    t8 = fields.field_tables(*deflate_encode.block_tables(lit_l8, dist_l8),
+                             dev)
+    f8 = fields.token_fields(a8, b8, t8, cnt8)
+    f8_p = fields.token_fields_plain(a8, b8, t8, cnt8)
+    torch.cuda.synchronize()
+    f8_err = max(max_abs_err(x, y) for x, y in zip(f8, f8_p))
+    errs[kname(f_)] = max(errs[kname(f_)], f8_err)
+    row[kname(f_)]["max_abs_err"] = errs[kname(f_)]
+    log(f"generic 8 MiB batch ({tuple(blocks.shape)}): hash candidates "
+        f"equal to phase 6b's (kernel vs plain there: max_abs_err "
+        f"{errs[kname(h_)]}); per-member token_fields on {tuple(a8.shape)} "
+        f"tokens (counts {int(cnt8.min())}-{int(cnt8.max())}, code widths "
+        f"up to {int(lit_l8.max())} / {int(dist_l8.max())}): max_abs_err "
+        f"{f8_err}")
+    if f8_err:
+        raise AssertionError("token_fields disagrees with its plain version")
+    del f8, f8_p
+    # the parse kernels at cap 512 on the jump arrays of the generic
+    # tokenizer (lz77.token_lengths, then parse.parse_inputs, as
+    # parse_tokens builds them): the hash branch's 6 LCP rounds and the
+    # sort branch's exact lengths
+    for branch, pcand, rounds in (
+            ("hash", hc8, pipeline.KERNEL_LCP_ROUNDS),
+            ("sort", lz77.prefix_candidates(blocks), None)):
+        gcand, glen = lz77.token_lengths(blocks, nv, pcand,
+                                         max_rounds=rounds)
+        gjump, gtok = parse.parse_inputs(blocks, nv, gcand, glen)
+        gex = parse.chunk_exits(gjump)
+        gex_p = parse.chunk_exits_plain(gjump)
+        gout, govf = parse.walk_emit(gjump, gtok, gex, parse.CHUNK)
+        gout_p, govf_p = parse.walk_emit_plain(gjump, gtok, gex, parse.CHUNK)
+        torch.cuda.synchronize()
+        ex_err = max_abs_err(gex, gex_p)
+        wk_err = max(max_abs_err(gout, gout_p), max_abs_err(govf, govf_p))
+        for k, e in ((ce_, ex_err), (we_, wk_err)):
+            errs[kname(k)] = max(errs[kname(k)], e)
+            row[kname(k)]["max_abs_err"] = errs[kname(k)]
+        log(f"generic {branch} branch parse at cap {parse.CHUNK} on "
+            f"{tuple(gjump.shape)} jumps ({int((gout >= 0).sum())} tokens, "
+            f"lengths up to {int(glen.max())}, overflow "
+            f"{int(govf.sum())}): chunk_exits max_abs_err {ex_err}, "
+            f"walk_emit max_abs_err {wk_err}")
+        if ex_err or wk_err:
+            raise AssertionError(f"the parse kernels disagree with their "
+                                 f"plain versions on the {branch} branch")
+        del gcand, glen, gjump, gtok, gex, gex_p, gout, gout_p
+
+    # 10c. the main path, counted: deflate.compress of 8 MiB, 128 blocks
+    s8, c8 = counted(lambda: fdeflate.compress(p8, engine="cuda"))
+    need(c8, "compress(8 MiB)", hash=1, fields=1, exits=1, walk=1)
+    if zlib.decompress(s8, -15) != p8:
+        raise AssertionError("zlib does not read back the 8 MiB stream")
+    back8, d8 = counted(lambda: fdeflate.decompress(s8, engine="cuda"))
+    if back8 != p8:
+        raise AssertionError("the cuda engine does not read back 8 MiB")
+    need(d8, "decompress(8 MiB)", decode=128)
+    log(f"generic main path deflate.compress(8 MiB, engine='cuda'): "
+        f"launches {c8}; {len(p8)} -> {len(s8)} bytes (ratio "
+        f"{len(s8) / len(p8):.6f}), read back by zlib and by "
+        f"deflate.decompress(engine='cuda') (launches {d8})")
+    # decode_symbols on the stream's first block at inflate_device's
+    # budget, against its plain version
+    ds_in, ds_mt = first_block_decode_args(s8, dev)
+    t = time.perf_counter()
+    ds_k = ds_(*ds_in, ds_mt)
+    torch.cuda.synchronize()
+    ds_k_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    ds_p = deflate_decode.decode_symbols_plain(*ds_in, ds_mt)
+    torch.cuda.synchronize()
+    ds_p_ms = (time.perf_counter() - t) * 1e3
+    ds_err = max(max_abs_err(x, y) for x, y in zip(ds_k, ds_p))
+    errs[kname(ds_)] = max(errs[kname(ds_)], ds_err)
+    row[kname(ds_)]["max_abs_err"] = errs[kname(ds_)]
+    log(f"decode_symbols on the 8 MiB stream's first block at the budget "
+        f"inflate_device gives it ({ds_mt} token slots, {int(ds_k[2][0])} "
+        f"tokens, err {bool(ds_k[4][0])}): max_abs_err {ds_err}; kernel "
+        f"{ds_k_ms:.2f} ms, plain {ds_p_ms:.2f} ms (host clock, one call) "
+        f"[{card_line}]")
+    if ds_err or bool(ds_k[4][0]):
+        raise AssertionError("decode_symbols disagrees with its plain "
+                             "version on the 8 MiB stream's first block")
+    del ds_in, ds_k, ds_p
+
+    # 10d. 64 MiB, 1024 blocks: the sort branch
+    s64, c64 = counted(lambda: fdeflate.compress(data, engine="cuda"))
+    need(c64, "compress(64 MiB)", hash=0, fields=8, exits=8, walk=8)
+    if zlib.decompress(s64, -15) != data:
+        raise AssertionError("zlib does not read back the 64 MiB stream")
+    log(f"generic deflate.compress(64 MiB, engine='cuda'), sort branch: "
+        f"launches {c64}; {len(data)} -> {len(s64)} bytes (ratio "
+        f"{len(s64) / len(data):.6f}), read back by zlib")
+
+    # 10e. the containers and the engine's checksums
+    g8 = fgzip.compress(p8, engine="cuda")
+    z8 = fzlib.compress(p8, engine="cuda")
+    if (gzip.decompress(g8) != p8 or zlib.decompress(z8) != p8
+            or g8[10:-8] != s8 or z8[2:-4] != s8):
+        raise AssertionError("a container's 8 MiB stream is wrong")
+    if (eng.crc32(data) != zlib.crc32(data)
+            or eng.adler32(data) != zlib.adler32(data)
+            or eng.crc32(data[1:], zlib.crc32(data[:1]))
+            != zlib.crc32(data)):
+        raise AssertionError("the cuda engine's checksums differ from zlib")
+    log(f"gzip.compress / zlib.compress(8 MiB, engine='cuda'): {len(g8)} / "
+        f"{len(z8)} bytes, read back by stdlib, bodies equal to the raw "
+        f"stream; engine crc32 / adler32 of 64 MiB equal to zlib's")
+
+    # 10f. pgzf with fixed blocks: 8 batches of 128 members
+    fixed = EncodeOptions(block_type="fixed")
+    sf, cf = counted(lambda: pgzf.compress(data, options=fixed,
+                                           device="cuda"))
+    need(cf, "pgzf.compress(64 MiB, fixed)", hash=8, fields=8, exits=8,
+         walk=8)
+    if gzip.decompress(sf) != data:
+        raise AssertionError("stdlib gzip does not read back pgzf fixed")
+    backf, df = counted(lambda: pgzf.decompress(sf, device="cuda"))
+    if backf != data:
+        raise AssertionError("pgzf.decompress does not read back pgzf fixed")
+    log(f"pgzf.compress(64 MiB, block_type='fixed', device='cuda'): "
+        f"launches {cf}; {len(sf)} bytes (ratio {len(sf) / len(data):.6f}), "
+        f"read back by stdlib gzip and pgzf.decompress(device='cuda') "
+        f"(launches {df})")
+
+    # 10g. the repaired faults: a member over 1 MiB (the gzip container
+    # on the cuda engine), a stream cut in its first block header
+    big_plain = data[:2 << 20]
+    big = gzip.compress(b"a small member", mtime=0) + gzip.compress(
+        big_plain, compresslevel=0, mtime=0)
+    big_back, bc = counted(lambda: pgzf.decompress(big, device="cuda"))
+    if big_back != b"a small member" + big_plain:
+        raise AssertionError("the 2 MiB stored member decodes wrong")
+    need(bc, "2 MiB stored member", decode=1)
+    cut = gzip.compress(bytes(range(256)) * 300, mtime=0)[:12]
+    try:
+        pgzf.decompress(cut, device="cuda")
+    except EOFError:
+        pass
+    else:
+        raise AssertionError("the cut stream did not raise EOFError")
+    log(f"pgzf.decompress(device='cuda'): a stdlib stream with a 2 MiB "
+        f"stored member decodes through the gzip fallback (launches {bc}); "
+        f"the stream cut inside its first block header raises EOFError")
+
+    # 10h. times, each with the card
+    for k in counted_kernels:
+        row[kname(k)]["launches"] += sum(c[kname(k)]
+                                         for c in (c8, c64, cf, d8))
+    # peaks above what is allocated before the calls
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms8 = host_ms(lambda: fdeflate.compress(p8, engine="cuda"))
+    peak8 = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    ms64 = host_ms(lambda: fdeflate.compress(data, engine="cuda"))
+    peak64 = torch.cuda.max_memory_allocated() - base
+    bf = np.ones(128, np.int32)
+    stages = {
+        "tokenize (hash kernel, 6 LCP rounds, parse kernels, compaction)":
+            lambda: pipeline.tokenize_batch_any(blocks, nv, True),
+        "fields (histograms, 384 package-merge and header calls, "
+        "token_fields)": lambda: deflate_encode.encode_block_fields(
+            a8, b8, cnt8, bf),
+    }
+    # the glue and host pieces inside them (hash kernel, parse kernels and
+    # token_fields have rows of their own)
+    cand6 = torch.where(torch.arange(blocks.shape[1], device=dev)[None, :]
+                        < nv[:, None], hc8, -1)
+    sort_cand = lz77.prefix_candidates(blocks)
+    hist8 = deflate_encode.token_histograms(a8, b8, cnt8)
+    lens8 = deflate_encode.block_code_lengths(*hist8)
+    tabs8 = deflate_encode.block_tables(*lens8)
+    fields8 = fields.token_fields(a8, b8, t8, cnt8)
+    hdr8 = deflate_encode.dynamic_headers(*lens8, bf)
+    pieces = {
+        "keys_hashes (glue)": lambda: hm.keys_hashes(blocks),
+        "match_lengths, 6 rounds (glue)": lambda: lz77.match_lengths(
+            blocks, cand6, max_rounds=6),
+        "sort branch prefix_candidates (glue: torch.sort)":
+            lambda: lz77.prefix_candidates(blocks),
+        "sort branch match_lengths, exact (glue)":
+            lambda: lz77.match_lengths(blocks, sort_cand),
+        "compaction (glue)": lambda: lz77.compact_tokens(
+            a8, b8, torch.ones_like(a8, dtype=torch.bool), a8.shape[1]),
+        "token_histograms (glue)": lambda: deflate_encode.token_histograms(
+            a8, b8, cnt8),
+        "package-merge, 256 calls (host)":
+            lambda: deflate_encode.block_code_lengths(*hist8),
+        "dynamic headers, 128 with 128 package-merge calls (host)":
+            lambda: deflate_encode.dynamic_headers(*lens8, bf),
+        "code tables, 256 (host)": lambda: deflate_encode.block_tables(
+            *lens8),
+        "field_tables upload": lambda: fields.field_tables(*tabs8, dev),
+        "assemble_fields (glue)": lambda: deflate_encode.assemble_fields(
+            hdr8, fields8, tabs8[0][:, 256], tabs8[1][:, 256]),
+    }
+    stage_ms = {k: cuda_ms(fn, 3) for k, fn in stages.items()}
+    piece_ms = {k: cuda_ms(fn, 3) for k, fn in pieces.items()}
+    del sort_cand, cand6, fields8
+    vals8, wids8 = deflate_encode.encode_block_fields(a8, b8, cnt8, bf)
+    stage_ms["pack (bitpack glue)"] = cuda_ms(
+        lambda: bitpack.pack_fields_batch(vals8, wids8), 3)
+    words8, bits8 = bitpack.pack_fields_batch(vals8, wids8)
+    bits8 = bits8.cpu().numpy()
+    words8 = words8[:, :int(bits8.max()) // 32 + 1].cpu().numpy().view(
+        np.uint32)
+    stage_ms["splice (host)"] = host_ms(
+        lambda: deflate_encode.splice_blocks_host(words8, bits8))
+    gz_ms = host_ms(lambda: fgzip.compress(p8, engine="cuda"))
+    zl_ms = host_ms(lambda: fzlib.compress(p8, engine="cuda"))
+    de_ms = host_ms(lambda: fdeflate.decompress(s8, engine="cuda"))
+    crc_ms = host_ms(lambda: eng.crc32(data))
+    adl_ms = host_ms(lambda: eng.adler32(data))
+    pf_ms = host_ms(lambda: pgzf.compress(data, options=fixed,
+                                          device="cuda"))
+    log(f"generic deflate.compress(8 MiB, engine='cuda'), hash branch: "
+        f"{ms8:.2f} ms median of 3 (host clock), ratio "
+        f"{len(s8) / len(p8):.6f}, peak {peak8 / 2**20:.0f} MiB; 64 MiB, "
+        f"sort branch: {ms64:.2f} ms, ratio {len(s64) / len(data):.6f}, "
+        f"peak {peak64 / 2**20:.0f} MiB (peaks above the {base / 2**20:.0f} "
+        f"MiB allocated before) [{card_line}]")
+    log("generic _encode_batch stages at 128 x 64 KiB, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stage_ms.items()) + f" [{card_line}]")
+    log("generic stage pieces at 128 x 64 KiB, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in piece_ms.items()) + f" [{card_line}]")
+    log(f"containers, ms median of 3 (host clock): gzip.compress(8 MiB) "
+        f"{gz_ms:.2f}, zlib.compress(8 MiB) {zl_ms:.2f}, "
+        f"deflate.decompress(8 MiB stream, 128 blocks) {de_ms:.2f}, engine "
+        f"crc32(64 MiB) {crc_ms:.2f}, adler32(64 MiB) {adl_ms:.2f}; "
+        f"pgzf.compress(64 MiB, fixed) {pf_ms:.2f} [{card_line}]")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,111 @@
+"""Engine registry: which engine does the raw DEFLATE byte work for the
+containers (counterpart of ``libflate_tpu/backend.py`` and of the "tpu"
+engine's registration, ``libflate_tpu/ops/pipeline.py:891-918``).
+
+An engine is a set of functions with one contract: ``deflate(data,
+options)`` -> raw DEFLATE bytes, ``inflate(data)`` -> an
+``InflateResult`` (``data``, ``end_bit``), ``crc32(data, crc=0)`` and
+``adler32(data, adler=1)`` -> int.  Two are registered:
+
+* ``cuda`` (the default): the generic device engine on the card,
+  ``ops/pipeline.deflate_device`` and ``ops/deflate_decode.inflate_device``,
+  the checksums on the card with host combines;
+* ``cpu``: the same functions on CPU tensors (every kernel's plain
+  version, the glue branches).
+
+:func:`get` looks for ``native`` and then ``serial`` first, as the
+reference does; neither is ported yet, so ``get(None)`` is ``cuda``,
+which raises RuntimeError where CUDA is not available.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+
+@dataclass
+class Engine:
+    name: str
+    #: (data, EncodeOptions) -> compressed bytes (raw DEFLATE stream)
+    deflate: Callable
+    #: (data) -> InflateResult (with .data and .end_bit)
+    inflate: Callable
+    crc32: Callable
+    adler32: Callable
+    available: Callable[[], bool] = lambda: True
+
+
+_engines: dict[str, Engine] = {}
+_default: Optional[str] = None
+
+
+def register(engine: Engine) -> None:
+    """Add ``engine``; the first one registered is the default."""
+    _engines[engine.name] = engine
+    global _default
+    if _default is None:
+        _default = engine.name
+
+
+def get(name: str | None = None) -> Engine:
+    """The engine ``name``; None or "auto": ``native``, then ``serial``,
+    then the default (``cuda``).  KeyError for an unknown name,
+    RuntimeError for an engine that is not available here."""
+    if name in (None, "auto"):
+        for candidate in ("native", "serial"):
+            e = _engines.get(candidate)
+            if e is not None and e.available():
+                return e
+        name = _default
+    e = _engines.get(name)
+    if e is None:
+        raise KeyError(f"no such backend engine: {name!r} "
+                       f"(registered: {sorted(_engines)})")
+    if not e.available():
+        raise RuntimeError(f"backend engine {name!r} is not available")
+    return e
+
+
+def names() -> list[str]:
+    return sorted(_engines)
+
+
+def device_engine(device: str) -> Engine:
+    """The generic device engine on ``device`` ("cuda" or "cpu")."""
+    import numpy as np
+    import torch
+
+    from .ops.checksum import adler32_device, crc32_device
+    from .ops.deflate_decode import inflate_device
+    from .ops.pipeline import deflate_device
+    from .utils import checksum as ck
+
+    def tensor(data):
+        if device == "cuda":
+            from . import require_cuda
+            require_cuda()
+        return torch.from_numpy(np.frombuffer(bytes(data), np.uint8).copy()
+                                ).to(device)
+
+    def crc32(data, crc=0):
+        v = crc32_device(tensor(data))
+        return ck.crc32_combine(crc, v, len(data)) if crc else v
+
+    def adler32(data, adler=1):
+        v = adler32_device(tensor(data))
+        return ck.adler32_combine(adler, v, len(data)) if adler != 1 else v
+
+    return Engine(
+        name=device,
+        deflate=lambda data, opts=None: deflate_device(bytes(data), opts,
+                                                       device=device),
+        inflate=lambda data: inflate_device(bytes(data), device=device),
+        crc32=crc32,
+        adler32=adler32,
+        available=(lambda: torch.cuda.is_available()) if device == "cuda"
+        else (lambda: True),
+    )
+
+
+register(device_engine("cuda"))
+register(device_engine("cpu"))

@@ -1,14 +1,20 @@
-"""Gzip member headers (RFC-1952), the port's copy of ``Header``,
-``ExtraField``, ``ExtraSubField`` and ``GzipError`` from
-``libflate_tpu/formats/gzip.py``: encode and decode with the same bytes
-and the same errors.
+"""GZIP container (RFC-1952), the port's copy of
+``libflate_tpu/formats/gzip.py``: member headers (``Header``,
+``ExtraField``, ``ExtraSubField``, ``HeaderBuilder``, ``Os``), the
+trailer, the level presets (``CompressionLevel``, ``EncodeOptions``) and
+the one-shots ``compress``, ``decompress_member``, ``decompress`` and
+``decompress_members`` on an engine of :mod:`..backend` ("cuda", the
+default, or "cpu"), with the same bytes and the same errors.
 """
 from __future__ import annotations
 
+import enum
 import struct
+import time
 import zlib
 from dataclasses import dataclass, field
 
+from .. import backend as _backend
 from ..spec import constants as C
 
 
@@ -139,3 +145,191 @@ class Header:
                    is_text=bool(flags & C.GZIP_FTEXT),
                    is_verified=is_verified, extra=extra,
                    filename=filename, comment=comment), pos
+
+
+class Os(enum.IntEnum):
+    """Header OS codes."""
+    FAT = 0
+    AMIGA = 1
+    VMS = 2
+    UNIX = 3
+    VM_CMS = 4
+    ATARI_TOS = 5
+    HPFS = 6
+    MACINTOSH = 7
+    Z_SYSTEM = 8
+    CPM = 9
+    TOPS20 = 10
+    NTFS = 11
+    QDOS = 12
+
+
+class CompressionLevel:
+    """Level presets: DEFLATE options and the header's XFL bits."""
+    NONE = "none"
+    FAST = "fast"
+    BALANCE = "balance"
+    BEST = "best"
+
+    @staticmethod
+    def xfl(level: str) -> int:
+        return {CompressionLevel.FAST: C.GZIP_XFL_FASTEST,
+                CompressionLevel.BEST: C.GZIP_XFL_SLOWEST}.get(
+            level, C.GZIP_XFL_UNKNOWN)
+
+    @staticmethod
+    def options(level: str):
+        from ..serial.deflate import EncodeOptions
+        if level == CompressionLevel.NONE:
+            return EncodeOptions(block_type="stored", matcher="none")
+        if level == CompressionLevel.FAST:
+            return EncodeOptions(matcher="greedy")
+        if level == CompressionLevel.BEST:
+            return EncodeOptions(matcher="chain", max_chain=128, lazy=True)
+        return EncodeOptions()
+
+
+class EncodeOptions:
+    """gzip-level options: a level, the DEFLATE options it implies (or
+    given ones) and the XFL bits."""
+
+    def __init__(self, level: str = CompressionLevel.BALANCE,
+                 deflate_options=None) -> None:
+        self.level = level
+        self.deflate_options = (deflate_options
+                                or CompressionLevel.options(level))
+
+    def header(self, base: Header | None = None) -> Header:
+        h = base or Header(mtime=0)
+        h.xfl = CompressionLevel.xfl(self.level)
+        return h
+
+
+class HeaderBuilder:
+    """Builder of a :class:`Header`; the mtime starts at the current
+    time."""
+
+    def __init__(self) -> None:
+        self._h = Header(mtime=int(time.time()))
+
+    def mtime(self, t: int) -> "HeaderBuilder":
+        self._h.mtime = t
+        return self
+
+    def os(self, os_code: int) -> "HeaderBuilder":
+        self._h.os = os_code
+        return self
+
+    def text(self) -> "HeaderBuilder":
+        self._h.is_text = True
+        return self
+
+    def verify(self) -> "HeaderBuilder":
+        self._h.is_verified = True
+        return self
+
+    def extra_field(self, extra: ExtraField) -> "HeaderBuilder":
+        self._h.extra = extra
+        return self
+
+    def filename(self, name: bytes) -> "HeaderBuilder":
+        self._h.filename = name
+        return self
+
+    def comment(self, comment: bytes) -> "HeaderBuilder":
+        self._h.comment = comment
+        return self
+
+    def finish(self) -> Header:
+        return self._h
+
+
+@dataclass
+class Trailer:
+    crc32: int
+    input_size: int    # ISIZE: uncompressed length mod 2^32
+
+    def encode(self) -> bytes:
+        return struct.pack("<II", self.crc32, self.input_size & 0xFFFFFFFF)
+
+    @classmethod
+    def decode(cls, data: bytes, pos: int) -> tuple["Trailer", int]:
+        if pos + 8 > len(data):
+            raise EOFError("truncated gzip trailer")
+        c, isize = struct.unpack_from("<II", data, pos)
+        return cls(c, isize), pos + 8
+
+
+def compress(data: bytes, options=None, header: Header | None = None,
+             engine: str | None = None) -> bytes:
+    """One gzip member.  ``options``: a gzip :class:`EncodeOptions`
+    (level and XFL) or DEFLATE ``EncodeOptions``."""
+    eng = _backend.get(engine)
+    if isinstance(options, EncodeOptions):
+        hdr = options.header(header)
+        deflate_opts = options.deflate_options
+    else:
+        hdr = header or Header(mtime=0)
+        deflate_opts = options
+    body = eng.deflate(data, deflate_opts)
+    trailer = Trailer(eng.crc32(data), len(data))
+    return hdr.encode() + bytes(body) + trailer.encode()
+
+
+@dataclass
+class Member:
+    header: Header
+    data: bytes
+    trailer: Trailer
+    end_pos: int
+
+
+def decompress_member(data: bytes, pos: int = 0,
+                      engine: str | None = None,
+                      verify: bool = True) -> Member:
+    """Decode the member at byte ``pos``.  EOFError for a truncated
+    header or trailer, GzipError for a bad header or (``verify``) a CRC
+    or ISIZE mismatch, the engine's errors for a bad body."""
+    eng = _backend.get(engine)
+    header, body_pos = Header.decode(data, pos)
+    result = eng.inflate(data[body_pos:])
+    out = bytes(result.data)
+    end_byte = body_pos + (result.end_bit + 7) // 8
+    trailer, end_pos = Trailer.decode(data, end_byte)
+    if verify:
+        actual = eng.crc32(out)
+        if actual != trailer.crc32:
+            raise GzipError(f"gzip CRC mismatch: stream says "
+                            f"{trailer.crc32:#010x}, computed {actual:#010x}")
+        if trailer.input_size != len(out) & 0xFFFFFFFF:
+            raise GzipError(f"gzip ISIZE mismatch: {trailer.input_size} "
+                            f"!= {len(out)}")
+    return Member(header, out, trailer, end_pos)
+
+
+def decompress(data: bytes, engine: str | None = None,
+               multi: bool = False) -> bytes:
+    """Decompress a gzip stream: its first member, or with ``multi`` all
+    concatenated members."""
+    member = decompress_member(data, 0, engine)
+    if not multi:
+        return member.data
+    out = bytearray(member.data)
+    pos = member.end_pos
+    while pos < len(data):
+        member = decompress_member(data, pos, engine)
+        out += member.data
+        pos = member.end_pos
+    return bytes(out)
+
+
+def decompress_members(data: bytes,
+                       engine: str | None = None) -> list[Member]:
+    """Decode all members, each with its header and trailer."""
+    members = []
+    pos = 0
+    while pos < len(data):
+        m = decompress_member(data, pos, engine)
+        members.append(m)
+        pos = m.end_pos
+    return members

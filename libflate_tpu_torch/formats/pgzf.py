@@ -1,11 +1,14 @@
 """PGZF on the device (counterpart of ``libflate_tpu/formats/pgzf.py``).
 
-Encode: :func:`compress` (``_compress_device``, ``:241-418``) turns the
-reference's ``EncodeOptions`` into device knobs, cuts the input into
-members, encodes batches of 128 on the device
-(``ops/pipeline.encode_batch``) and assembles the members on the host:
-bit splice, member CRC, the "LF" member-size and "LS" sync-index header
-subfields, and the stored fallback for incompressible members.
+Encode: :func:`compress` (``compress``, ``:153-206``, and
+``_compress_device``, ``:241-418``) turns the reference's
+``EncodeOptions`` into device knobs, cuts the input into members, encodes
+batches of 128 on the device (``ops/pipeline.encode_batch``, or for fixed
+blocks ``ops/pipeline.encode_batch_generic``) and assembles the members
+on the host: bit splice, member CRC, the "LF" member-size and "LS"
+sync-index header subfields, and the stored fallback for incompressible
+members.  ``matcher="none"`` and stored blocks go member by member
+through the gzip container and ``_reheader`` (``:197-206``, ``:233``).
 
 Decode: :func:`decompress_to_device` (``:752-825``) with
 ``_prepare_sync_device`` (``:973-1079``), ``_run_sync_chain`` (``:1082``)
@@ -27,8 +30,9 @@ token decode), the shared-table branch ``_decompress_shared``
 (``_decompress_shared_device``, ``:1264-1301``) and the generic branch
 ``_decompress_generic`` (``_decompress_device``, ``:1304-1443``: each
 member's own tables, ``ops/deflate_decode.decode_symbols``); a branch's
-ImportError falls through to the next, the last to the foreign path.
-Every branch ends in one device-to-host copy of the rows.
+ImportError falls through to the next, the last to the foreign path,
+and the foreign path's to the gzip container on the device's engine
+(``:508-511``).  Every branch ends in one device-to-host copy of the rows.
 
 The host helpers — member index, LS sync index, chunk spans, member
 header — are the port's own copies of the reference's (``:38-74``,
@@ -44,7 +48,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.checksum import crc32_f_rows, crc32_from_padded_f
+from ..ops.checksum import crc32_batch, crc32_f_rows, \
+    crc32_from_padded_f
 from ..ops.decode import chunk_exit_maps, speculative_decode_positions, \
     walk_emit
 from ..ops.deflate_decode import chain_entries, decode_symbols, \
@@ -52,7 +57,8 @@ from ..ops.deflate_decode import chain_entries, decode_symbols, \
 from ..ops.deflate_encode import splice_blocks_host
 from ..ops.device_expand import expand_members
 from ..ops.huffman import decode_table, tables_from_lengths
-from ..ops.pipeline import device_knobs, encode_batch
+from ..ops.pipeline import device_knobs, encode_batch, \
+    encode_batch_generic, use_kernel_branches
 from ..ops.sync_decode import DEBUG_POISON, SYNC_TOKENS, \
     debug_checks, staged_words, stream_words, sync_decode
 from ..serial.deflate import DeflateError, deflate_stored, \
@@ -185,19 +191,11 @@ def _check_member_size(member_size: int) -> None:
 
 
 def _encode_knobs(options) -> dict:
-    """The device knobs of ``options``; ValueError for the settings the
-    reference sends to an encoder the port lacks."""
+    """The device knobs of a shared-table encode's ``options``;
+    ValueError for an unknown matcher or a bad window."""
     if options is None:
         return {}
     matcher = getattr(options, "matcher", "greedy")
-    block_type = getattr(options, "block_type", "dynamic")
-    if matcher == "none" or block_type == "stored":
-        raise ValueError("matcher='none' and block_type='stored' take the "
-                         "reference's serial encoder, which is not ported")
-    if block_type != "dynamic":
-        raise ValueError(f"block_type={block_type!r} takes the reference's "
-                         "generic device engine (_encode_batch), which is "
-                         "not ported")
     if matcher not in ("greedy", "lazy", "chain"):
         raise ValueError(f"unknown matcher {matcher!r}")
     knobs = device_knobs(options)
@@ -210,36 +208,54 @@ def _encode_knobs(options) -> dict:
 
 def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
              options=None, device="cuda") -> bytes:
-    """Compress into an indexed, sync-indexed multi-member gzip stream.
+    """Compress into an indexed multi-member gzip stream.
 
     Byte-identical to the reference's device encode
     (``pgzf.compress(data, member_size, options=options, engine="tpu")``
     on its TPU kernel branches) for ``member_size`` a multiple of 1024 up
     to 65536; other sizes raise ValueError.  ``options`` is an
-    ``EncodeOptions`` (the port's or the reference's): ``matcher="chain"``
-    with ``max_chain``, ``lcp_rounds``, ``window_size`` (a multiple of
-    1024 up to 32768), ``lazy`` and ``parse_cap`` set the device knobs;
-    ``matcher`` "greedy" and "lazy" change nothing.  The candidates come
-    from the sort matcher, or from the hash matcher under
-    ``LIBFLATE_DEVICE_MATCHER=hash``.  Members are encoded in batches of
-    128 sharing one Huffman code; a batch whose parse overflows the
-    chunk budget (384 slots, or ``parse_cap``) is encoded again at 512
-    with the other knobs kept; a member whose coded body is not smaller
-    than stored blocks is written stored (no LS index).  Any stock gzip
-    reader decodes the result.
+    ``EncodeOptions`` (the port's or the reference's); its ``block_type``
+    and ``matcher`` choose the route, as in the reference:
+
+    * "dynamic" (the default): the shared-table sync encode.
+      ``matcher="chain"`` with ``max_chain``, ``lcp_rounds``,
+      ``window_size`` (a multiple of 1024 up to 32768), ``lazy`` and
+      ``parse_cap`` set the device knobs; ``matcher`` "greedy" and "lazy"
+      change nothing.  The candidates come from the sort matcher, or from
+      the hash matcher under ``LIBFLATE_DEVICE_MATCHER=hash``.  Members
+      are encoded in batches of 128 sharing one Huffman code, with the LS
+      sync index; a batch whose parse overflows the chunk budget (384
+      slots, or ``parse_cap``) is encoded again at 512;
+    * "fixed" or "auto": the generic engine's batch encode, 128 members a
+      batch, each member one block with its own code (the fixed code, or
+      for "auto" whichever of fixed and its own dynamic code is smaller),
+      no LS index; the knobs are not read;
+    * ``matcher="none"`` or ``block_type="stored"``: member by member
+      through :func:`..formats.gzip.compress` on the device's engine,
+      re-headed with the LF index.
+
+    A coded member that is not smaller than stored blocks is written
+    stored (no LS index).  Any stock gzip reader decodes the result.
 
     Runs on ``device`` ("cuda" unless the caller asks for "cpu", which
-    runs every kernel's plain version).  Raises ValueError for
-    ``matcher="none"``, a ``block_type`` other than "dynamic" (the
-    reference's serial encoder and generic device engine are not
-    ported), an unknown matcher or ``LIBFLATE_DEVICE_MATCHER`` value, or
-    a bad window; RuntimeError for "cuda" without CUDA; DeflateError if a
-    coded field breaks the pack invariant (an internal error).
+    runs every kernel's plain version).  Raises ValueError for an unknown
+    matcher, ``block_type`` or ``LIBFLATE_DEVICE_MATCHER`` value, or a bad
+    window; RuntimeError for "cuda" without CUDA; DeflateError if a coded
+    field breaks the pack invariant (an internal error).
     """
     _check_member_size(member_size)
-    knobs = _encode_knobs(options)
     dev = _device(device)
     data = bytes(data)
+    matcher = getattr(options, "matcher", "greedy") if options else "greedy"
+    block_type = (getattr(options, "block_type", "dynamic") if options
+                  else "dynamic")
+    if matcher == "none" or block_type == "stored":
+        return _compress_members(data, member_size, options, dev)
+    if block_type in ("fixed", "auto"):
+        return _compress_generic(data, member_size, block_type, dev)
+    if block_type != "dynamic":
+        raise ValueError(f"unknown block_type {block_type!r}")
+    knobs = _encode_knobs(options)
     raw = np.frombuffer(data, np.uint8)
     n_members = max(1, -(-len(raw) // member_size))
     n_batches = -(-n_members // DEV_BATCH)
@@ -277,26 +293,80 @@ def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
         cnts.append(out["n_tokens"].cpu().numpy())
         offs.extend(out["offsets"].cpu().numpy())
     crcs_all, cnts_all = np.concatenate(crcs), np.concatenate(cnts)
+    syncs = [_sync_payload(SYNC_TOKENS, int(cnts_all[i]), offs[i])
+             if int(cnts_all[i]) > 0 else None for i in range(n_members)]
+    return _assemble(data, member_size, bodies, crcs_all, syncs)
 
-    out_b = bytearray()
-    for i in range(n_members):
-        body, nv_i = bodies[i], int(n_valid[i])
-        sync_payload = None
-        if int(cnts_all[i]) > 0:
-            sync_payload = _sync_payload(SYNC_TOKENS, int(cnts_all[i]),
-                                         offs[i])
-        stored_size = nv_i + 5 * max(1, -(-nv_i // C.MAX_STORED_BLOCK))
+
+def _assemble(data: bytes, member_size: int, bodies, crcs, syncs) -> bytes:
+    """The indexed members: header (LF, and LS where given), body (stored
+    blocks where the coded body is not smaller), CRC and ISIZE."""
+    out = bytearray()
+    for i, body in enumerate(bodies):
+        plain = data[i * member_size:(i + 1) * member_size]
+        sync_payload = syncs[i]
+        stored_size = len(plain) + 5 * max(1, -(-len(plain)
+                                                // C.MAX_STORED_BLOCK))
         if len(body) >= stored_size:
             # incompressible member: stored blocks beat entropy coding
-            body = deflate_stored(
-                data[i * member_size:i * member_size + nv_i])
+            body = deflate_stored(plain)
             sync_payload = None
         member = bytearray(_member_header(0, sync_payload=sync_payload))
         member += body
-        member += struct.pack("<II", int(crcs_all[i]), nv_i)
+        member += struct.pack("<II", int(crcs[i]), len(plain))
         struct.pack_into("<I", member, _SIZE_OFFSET, len(member))
-        out_b += member
-    return bytes(out_b)
+        out += member
+    return bytes(out)
+
+
+def _compress_generic(data: bytes, member_size: int, block_type: str,
+                      device) -> bytes:
+    """``_compress_device``'s non-sync branch: batches of 128 members
+    through the generic engine's batch encode (every member a final block;
+    on the card the hash candidates, as for the reference's batch of
+    128), CRCs of the right-aligned rows, no LS index."""
+    raw = np.frombuffer(data, np.uint8)
+    n_members = max(1, -(-len(raw) // member_size))
+    n_valid = np.minimum(member_size, len(raw) - member_size * np.arange(
+        n_members)).astype(np.int32)
+    hash_branch = use_kernel_branches(device)
+    bodies, crcs = [], []
+    for s0 in range(0, n_members, DEV_BATCH):
+        nv = n_valid[s0:s0 + DEV_BATCH]
+        rows = np.zeros((len(nv), member_size), np.uint8)
+        right = np.zeros_like(rows)
+        for k, ln in enumerate(nv):
+            chunk = raw[(s0 + k) * member_size:(s0 + k) * member_size + ln]
+            rows[k, :ln] = chunk
+            right[k, member_size - ln:] = chunk
+        words, bits = encode_batch_generic(
+            torch.from_numpy(rows).to(device),
+            torch.from_numpy(nv).to(device), np.ones(len(nv), np.int32),
+            block_type, hash_branch)
+        bits = bits.cpu().numpy()
+        words = words[:, :int(bits.max(initial=0) + 31) // 32].cpu(
+            ).numpy().view(np.uint32)
+        bodies += [splice_blocks_host(words[k:k + 1], bits[k:k + 1])
+                   for k in range(len(nv))]
+        crcs.append(crc32_batch(torch.from_numpy(right).to(device), nv))
+    return _assemble(data, member_size, bodies, np.concatenate(crcs),
+                     [None] * n_members)
+
+
+def _compress_members(data: bytes, member_size: int, options,
+                      device) -> bytes:
+    """Member by member through the gzip container on the device's
+    engine, each re-headed with the LF index (``matcher="none"`` and
+    stored blocks: the reference's route when its device encode refuses
+    them)."""
+    out = bytearray()
+    for i in range(0, max(len(data), 1), member_size):
+        plain = fgzip.compress(data[i:i + member_size], options=options,
+                               engine=device.type)
+        member = bytearray(_member_header(0) + plain[10:])
+        struct.pack_into("<I", member, _SIZE_OFFSET, len(member))
+        out += member
+    return bytes(out)
 
 
 def decompress_to_device(data: bytes, verify: bool = False,
@@ -705,7 +775,12 @@ def decompress(data: bytes, verify: bool = True, device="cuda") -> bytes:
     stream raises ImportError, and the next one tries; a stream without
     the LF index, or one none of them takes, goes through the
     foreign-stream path (host token decode, device expansion).  Members
-    a branch cannot take decode by the foreign token decode too.
+    a branch cannot take decode by the foreign token decode too.  A
+    stream with a member larger than the foreign path's 1 MiB ends in the
+    reference's last route: :func:`..formats.gzip.decompress` with
+    ``multi=True`` on the device's engine (``ops/deflate_decode.
+    inflate_device``, a block at a time), which verifies every CRC
+    whatever ``verify`` says.
 
     ``verify=True`` checks every member's CRC-32: from CRC f-values of
     the device rows, and with zlib's CRC on members that the foreign
@@ -715,9 +790,9 @@ def decompress(data: bytes, verify: bool = True, device="cuda") -> bytes:
 
     Raises DeflateError for a malformed or corrupt member (an invalid
     Huffman code, a bad back-reference), GzipError for a CRC or size
-    mismatch or a truncated trailer, ValueError for an empty stream,
-    ImportError for a member larger than 1 MiB that no device branch
-    takes, and RuntimeError for ``device="cuda"`` without CUDA.
+    mismatch or a truncated trailer, EOFError for a stream cut inside a
+    body, ValueError for an empty stream, and RuntimeError for
+    ``device="cuda"`` without CUDA.
     """
     dev = _device(device)
     data = bytes(data)
@@ -737,7 +812,12 @@ def decompress(data: bytes, verify: bool = True, device="cuda") -> bytes:
             return _decompress_generic(data, refs, verify, dev)
         except ImportError:
             pass
-    return _decompress_foreign(data, refs, verify, dev)
+    try:
+        return _decompress_foreign(data, refs, verify, dev)
+    except ImportError:
+        # a member past the device expansion's 1 MiB: the gzip container
+        # on the device's engine, a block at a time
+        return fgzip.decompress(data, engine=dev.type, multi=True)
 
 
 def _join_rows(n_members: int, parts, device):

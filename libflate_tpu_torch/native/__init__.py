@@ -29,6 +29,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / \
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
              "-pthread"]
 
+#: the decoders' return code for input that ends inside the stream
+TRUNCATED = -13
+
 _lock = threading.Lock()
 _lib = None
 
@@ -127,7 +130,8 @@ def inflate_tokens(data: bytes, start: int, token_cap: int):
     tokens, reporting its end bit so that a caller can walk a multi-member
     stream without an index.  Returns (toks (n,) int32, out_size,
     end_bit), or None when ``token_cap`` was too small (grow and retry).
-    Raises DeflateError for a malformed body."""
+    Raises EOFError when the input ends inside the body, DeflateError for
+    a malformed body."""
     lib = load()
     buf = np.frombuffer(bytes(data), np.uint8)
     toks = np.empty(token_cap, np.int32)
@@ -140,6 +144,8 @@ def inflate_tokens(data: bytes, start: int, token_cap: int):
         _ptr(osz, ctypes.c_uint64), _ptr(eb, ctypes.c_uint64))
     if rc == -8:
         return None
+    if rc == TRUNCATED:
+        raise EOFError("truncated deflate stream")
     if rc < 0:
         raise DeflateError(f"token decode failed (rc {rc})")
     # a copy: a view would keep the whole token_cap buffer alive

@@ -20,6 +20,11 @@
 
 extern "C" {
 
+// Return codes of the decoders below: 0 ok; -2 .. -12 a malformed stream
+// (-8: more tokens than the caller's budget); LF_TRUNCATED: the input
+// ended inside the stream.
+#define LF_TRUNCATED (-13)
+
 
 // ---------------------------------------------------------------------------
 // Bit reader (LSB-first)
@@ -304,12 +309,12 @@ static int parse_dyn_header(BitIn* b, int32_t* lit_l, int32_t* dist_l) {
     int hlit = bi_read(b, 5) + 257;
     int hdist = bi_read(b, 5) + 1;
     int hclen = bi_read(b, 4) + 4;
-    if (b->overrun) return -1;
+    if (b->overrun) return LF_TRUNCATED;
     if (hlit > 286) return -2;            // "HLIT too big" (5-bit field reaches 288)
     if (hdist > 30) return -2;            // "HDIST too big"
     int32_t clc[19] = {0};
     for (int k = 0; k < hclen; k++) clc[CLC_ORDER[k]] = bi_read(b, 3);
-    if (b->overrun) return -1;
+    if (b->overrun) return LF_TRUNCATED;
     uint16_t clc_table[1 << 7];
     if (!build_table(clc, 19, clc_table, 7)) return -3;
     int total = hlit + hdist;
@@ -319,7 +324,7 @@ static int parse_dyn_header(BitIn* b, int32_t* lit_l, int32_t* dist_l) {
         uint16_t e = clc_table[bi_peek(b, 7)];
         if (!e) return -3;
         bi_skip(b, e & 15);
-        if (b->overrun) return -1;
+        if (b->overrun) return LF_TRUNCATED;
         int sym = e >> 4;
         if (sym < 16) { tmp[i++] = sym; }
         else if (sym == 16) {
@@ -336,7 +341,7 @@ static int parse_dyn_header(BitIn* b, int32_t* lit_l, int32_t* dist_l) {
             if (i + run > total) return -5;
             for (int k = 0; k < run; k++) tmp[i++] = 0;
         }
-        if (b->overrun) return -1;
+        if (b->overrun) return LF_TRUNCATED;
     }
     memset(lit_l, 0, 286 * sizeof(int32_t));
     memset(dist_l, 0, 30 * sizeof(int32_t));
@@ -369,12 +374,12 @@ static int inflate_tokens_one(const uint8_t* src, uint64_t n,
     for (;;) {
         int final_ = bi_read(&b, 1);
         int btype = bi_read(&b, 2);
-        if (b.overrun) return -1;
+        if (b.overrun) return LF_TRUNCATED;
         if (btype == 0) {
             bi_align(&b);
             uint32_t len = bi_read(&b, 16);
             uint32_t nlen = bi_read(&b, 16);
-            if (b.overrun) return -1;
+            if (b.overrun) return LF_TRUNCATED;
             if (len != (nlen ^ 0xFFFFu)) return -7;
             if (t + (int64_t)len > tcap) return -8;
             while (b.nbits >= 8 && len) {
@@ -382,7 +387,7 @@ static int inflate_tokens_one(const uint8_t* src, uint64_t n,
                 b.acc >>= 8; b.nbits -= 8; len--; o++;
             }
             b.acc &= (1ull << b.nbits) - 1;
-            if (b.pos + len > b.size) return -1;
+            if (b.pos + len > b.size) return LF_TRUNCATED;
             for (uint32_t k = 0; k < len; k++)
                 toks[t++] = (int32_t)b.data[b.pos + k];
             o += len; b.pos += len;
@@ -422,9 +427,9 @@ static int inflate_tokens_one(const uint8_t* src, uint64_t n,
             for (;;) {
                 bi_fill(&b);
                 uint32_t e = lit_table[(uint32_t)b.acc & lit_mask];
-                if (!e) return -3;
+                if (!e) return b.nbits < lit_bits ? LF_TRUNCATED : -3;
                 int w = e & 31;
-                if (b.nbits < w) return -1;
+                if (b.nbits < w) return LF_TRUNCATED;
                 b.acc >>= w; b.nbits -= w;
                 if (e & 0x20u) {       // two-level: long literal code
                     uint32_t sb_ = (e >> 8) & 15u;
@@ -432,7 +437,7 @@ static int inflate_tokens_one(const uint8_t* src, uint64_t n,
                                   ((uint32_t)b.acc & ((1u << sb_) - 1))];
                     if (!e) return -3;
                     w = e & 31;
-                    if (b.nbits < w) return -1;
+                    if (b.nbits < w) return LF_TRUNCATED;
                     b.acc >>= w; b.nbits -= w;
                 }
                 if ((int32_t)e < 0) {
@@ -448,7 +453,7 @@ static int inflate_tokens_one(const uint8_t* src, uint64_t n,
                         ((uint32_t)b.acc & ((1u << le) - 1));
                     b.acc >>= le; b.nbits -= le;
                     uint32_t de = dist_table[(uint32_t)b.acc & dist_mask];
-                    if (!de) return -3;
+                    if (!de) return b.nbits < dist_bits ? LF_TRUNCATED : -3;
                     int dw = de & 31;
                     b.acc >>= dw; b.nbits -= dw;
                     if (de & 0x20u) {  // two-level: long distance code
@@ -464,7 +469,7 @@ static int inflate_tokens_one(const uint8_t* src, uint64_t n,
                     uint32_t dist = (de >> 16) +
                         ((uint32_t)b.acc & ((1u << dxe) - 1));
                     b.acc >>= dxe; b.nbits -= dxe;
-                    if (b.nbits < 0) return -1;
+                    if (b.nbits < 0) return LF_TRUNCATED;
                     if (dist > o) return -12;
                     if (t >= tcap) return -8;
                     toks[t++] = (int32_t)(length | (dist << 9));

@@ -11,6 +11,14 @@ matrices.  The products are float32 matrix products, as in the reference
 (torch glue, not a kernel): every operand is 0 or 1 and every sum is at
 most 512, which float32 holds exactly.  TF32 is switched off around them
 all the same, so the result never depends on a global precision setting.
+
+The generic engine's checksums (counterparts of ``crc32_jax`` (``:225``),
+``crc32_batch_jax`` (``:132``), ``crc32_combine_jax`` (``:243``),
+``adler32_jax`` (``:288``) and ``adler32_combine_jax`` (``:298``), XLA in
+the reference, torch glue here): :func:`crc32_device` and
+:func:`crc32_batch` are :func:`crc32_f_rows` plus the host finish;
+:func:`adler32_device` sums 1024-byte chunks on the device and folds them
+with the reference's formula, in int64.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from ..spec.constants import ADLER32_MOD
 from ..utils.checksum import (CRC_TABLE, _gf2_matrix_times, _shift_operator,
                               gf2_matrix_inverse)
 
@@ -170,3 +179,72 @@ def crc32_from_padded_f(f_rows, lengths, row_bytes: int) -> np.ndarray:
             v = _gf2_matrix_times(_inv_shift_cols(pad), v)
         out[i] = (v ^ _init_term(ln)) ^ 0xFFFFFFFF
     return out
+
+
+def crc32_device(data: torch.Tensor) -> int:
+    """CRC-32 of a (n,) uint8 tensor: its f-value on the tensor's device,
+    finished on the host."""
+    n = int(data.shape[0])
+    if n == 0:
+        return 0
+    f = crc32_f_rows(data.reshape(1, n)).cpu().numpy()
+    return int(crc32_from_padded_f(f, [n], n)[0])
+
+
+def crc32_batch(data: torch.Tensor, lengths) -> np.ndarray:
+    """CRC-32 of RIGHT-aligned rows: row i's payload is its last
+    ``lengths[i]`` bytes (leading zeros leave a register from 0 as it
+    is).  Returns (B,) uint32, 0 for an empty row."""
+    f = crc32_f_rows(data).cpu().numpy().view(np.uint32)
+    lens = np.asarray(lengths)
+    init = np.array([_init_term(int(n)) for n in lens], np.uint32)
+    out = (f ^ init) ^ np.uint32(0xFFFFFFFF)
+    out[lens == 0] = 0
+    return out
+
+
+def crc32_combine_device(crc1: torch.Tensor, crc2: torch.Tensor,
+                         len2: int) -> torch.Tensor:
+    """CRC of a concatenation from the parts' CRCs (int64 tensors of
+    uint32 values), the shift applied as a GF(2) product."""
+    with _no_tf32():
+        return _apply_gf2_cols(crc1.to(torch.int64).reshape(1),
+                               _shift_operator(len2))[0] ^ crc2.to(
+            torch.int64)
+
+
+_ADLER_CHUNK = 1024
+
+
+def adler32_device(data: torch.Tensor) -> int:
+    """Adler-32 of a (n,) uint8 tensor: per-chunk byte sums and weighted
+    sums on the tensor's device, ``B = n + sum_j (sb_j + (n - (j+1)C)
+    * sa_j)`` mod 65521."""
+    n = int(data.shape[0])
+    if n == 0:
+        return 1
+    m = ADLER32_MOD
+    j = -(-n // _ADLER_CHUNK)
+    d = torch.nn.functional.pad(data.to(torch.int64),
+                                (0, j * _ADLER_CHUNK - n)).view(j, -1)
+    weights = torch.arange(_ADLER_CHUNK, 0, -1, dtype=torch.int64,
+                           device=data.device)
+    sa = d.sum(dim=1) % m
+    sb = (d * weights).sum(dim=1) % m
+    coef = (n - (torch.arange(j, device=data.device) + 1) * _ADLER_CHUNK) % m
+    a = (1 + int(sa.sum())) % m
+    b = (n + int(((sb + coef * sa) % m).sum())) % m
+    return (b << 16) | a
+
+
+def adler32_combine_device(ad1: torch.Tensor, ad2: torch.Tensor,
+                           len2: int) -> torch.Tensor:
+    """Adler-32 of a concatenation from the parts' checksums (int64
+    tensors of uint32 values)."""
+    m = ADLER32_MOD
+    ad1, ad2 = ad1.to(torch.int64), ad2.to(torch.int64)
+    a1, b1 = ad1 & 0xFFFF, (ad1 >> 16) & 0xFFFF
+    a2, b2 = ad2 & 0xFFFF, (ad2 >> 16) & 0xFFFF
+    a = (a1 + a2 - 1) % m
+    b = (b1 + b2 + (len2 % m) * ((a1 - 1) % m)) % m
+    return (b << 16) | a

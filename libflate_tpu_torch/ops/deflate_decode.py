@@ -338,6 +338,18 @@ def _bytes_to_words(data: bytes) -> np.ndarray:
     return np.frombuffer(bytes(data) + b"\x00" * pad, np.uint8).view("<u4")
 
 
+def token_budget(n_bytes: int, out_cap: int | None = None,
+                 attempt: int = 0) -> tuple[int, int]:
+    """(cap, max_tokens) of a block's decode ``attempt`` (0-3) in a
+    stream of ``n_bytes``: ``out_cap`` output bytes (or 4 a stream byte,
+    at least 64 KiB) to a power of two, times 4 an attempt; the token
+    slots are that, at most a token a stream bit, plus one."""
+    cap0 = out_cap or max(1 << 16, 4 * n_bytes + 1024)
+    cap = (1 << (cap0 - 1).bit_length()) << (2 * attempt)
+    # a token gives >= 1 byte and takes >= 1 bit: both bound the steps
+    return cap, min(cap, 8 * n_bytes + 64) + 1
+
+
 def inflate_device(data: bytes, out_cap: int | None = None, device="cuda"):
     """Decode a complete raw DEFLATE stream, a block at a time.
 
@@ -392,8 +404,6 @@ def inflate_device(data: bytes, out_cap: int | None = None, device="cuda"):
             lit_t, dist_t = tables_from_lengths(
                 torch.from_numpy(lit_l[None, :]).to(dev),
                 torch.from_numpy(dist_l[None, :]).to(dev))
-            cap0 = out_cap or max(1 << 16, 4 * len(data) + 1024)
-            cap0 = 1 << (cap0 - 1).bit_length()
             hist = np.zeros((1, C.WINDOW_SIZE), np.uint8)
             tail = bytes(out[-C.WINDOW_SIZE:])
             if tail:
@@ -403,10 +413,7 @@ def inflate_device(data: bytes, out_cap: int | None = None, device="cuda"):
             hist_len = torch.tensor([len(tail)], dtype=torch.int32,
                                     device=dev)
             for attempt in range(4):
-                cap = cap0 << (2 * attempt)
-                # a token gives >= 1 byte and takes >= 1 bit: both bound
-                # the steps
-                max_tokens = min(cap, 8 * len(data) + 64) + 1
+                cap, max_tokens = token_budget(len(data), out_cap, attempt)
                 a, b, nt, end_bit, err = decode_symbols(
                     words, start, lit_t, dist_t, max_tokens)
                 n_tok = int(nt[0])

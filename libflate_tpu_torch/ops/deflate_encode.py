@@ -1,21 +1,34 @@
-"""Dynamic-block header fields and the host bit splice (counterpart of
-``libflate_tpu/ops/deflate_encode.py``: ``_encoder_tables`` (``:93``),
-``rle_code_lengths_jax`` (``:98``), ``dynamic_header_fields`` (``:200``),
-the ``N_*`` field counts (``:48-51``) and ``splice_blocks_host``
-(``:340``)).
+"""The DEFLATE block encoder: token histograms, code lengths, header and
+token fields, and the host bit splice (counterpart of
+``libflate_tpu/ops/deflate_encode.py``: ``token_symbols`` (``:54``),
+``token_histograms_jax`` (``:64``) and ``token_histograms_masked``
+(``:73``), ``_encoder_tables`` (``:93``), ``rle_code_lengths_jax``
+(``:98``), ``token_fields_xla`` (``:172``, as the per-member
+:func:`..fields.token_fields`), ``dynamic_header_fields``
+(``:200``), ``encode_block_fields`` (``:241``), ``encode_block`` with
+``encode_blocks`` (``:317-335``), the ``N_*`` field counts (``:48-51``)
+and ``splice_blocks_host`` (``:340``)).
 
 A block is a flat stream of (value, width) fields, written LSB first:
 the 3-bit block header, HLIT/HDIST/HCLEN and the 19 code-length-code
 widths (``N_HEADER_FIELDS``), the run-length coded code lengths of all
 286 + 30 symbols (``N_LENGTH_FIELDS``, holes have width 0), then two
-fields per token and the end-of-block code.  Header work is a few
-hundred fields per batch, host glue in numpy.
+fields per token and the end-of-block code.  A fixed block keeps the
+same layout with only its 3-bit header among the header fields.
+Everything here is batched over blocks, (B, M) token rows: histograms are
+torch glue on the tokens' device, and the token fields are the fields
+kernel (``csrc/fields.cu``) with one table row a block, its plain version
+on CPU tensors; package-merge, codes and headers are a few hundred fields
+a block, host glue in numpy, one call per block.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..spec import constants as C
+from .bitpack import pack_fields_batch
+from .fields import field_tables, token_fields
 from .huffman import canonical_codes, package_merge_lengths, reverse_codes
 
 N_LIT = C.MAX_LITLEN_SYMBOLS                     # 286
@@ -113,6 +126,163 @@ def dynamic_header_fields(lit_lengths, dist_lengths, bfinal: int = 1):
     len_widths = np.where(emitted, cw + nbits, 0)
     return tuple(x.astype(np.int32)
                  for x in (hdr_vals, hdr_widths, len_vals, len_widths))
+
+
+_LUTS: dict = {}
+
+
+def _luts(device) -> dict:
+    """The RFC-1951 length and distance code LUTs as int64 tensors on
+    ``device``."""
+    key = str(device)
+    if key not in _LUTS:
+        _LUTS[key] = {k: torch.from_numpy(getattr(C, k).astype(np.int64))
+                      .to(device)
+                      for k in ("LENGTH_TO_CODE", "DIST_TO_CODE")}
+    return _LUTS[key]
+
+
+def token_symbols(a, b, valid):
+    """(B, M) tokens -> (litlen symbol, distance symbol or -1, is_match),
+    int64 / bool."""
+    lut = _luts(a.device)
+    a64, b64 = a.to(torch.int64), b.to(torch.int64)
+    is_match = (b64 > 0) & valid
+    lit_sym = torch.where(is_match,
+                          lut["LENGTH_TO_CODE"][a64.clamp(0, C.MAX_MATCH)],
+                          a64.clamp(0, 255))
+    dist_sym = torch.where(
+        is_match, lut["DIST_TO_CODE"][b64.clamp(0, C.MAX_DISTANCE)], -1)
+    return lit_sym, dist_sym, is_match
+
+
+def token_histograms_masked(a, b, valid):
+    """(B, 286) litlen and (B, 30) distance frequencies of the valid
+    slots, int64, with the end of block counted and a dummy distance code
+    where a block has no match."""
+    lit_sym, dist_sym, is_match = token_symbols(a, b, valid)
+    bsz = a.shape[0]
+    lit = torch.zeros((bsz, N_LIT), dtype=torch.int64, device=a.device)
+    lit.scatter_add_(1, torch.where(valid, lit_sym, N_LIT - 1),
+                     valid.to(torch.int64))
+    lit[:, C.END_OF_BLOCK] += 1
+    dist = torch.zeros((bsz, N_DIST), dtype=torch.int64, device=a.device)
+    dist.scatter_add_(1, torch.where(is_match, dist_sym, 0),
+                      is_match.to(torch.int64))
+    none = dist.sum(dim=1) == 0
+    dist[:, 0] = torch.where(none, 1, dist[:, 0])
+    return lit, dist
+
+
+def token_histograms(a, b, n_tokens):
+    """:func:`token_histograms_masked` of the first ``n_tokens`` slots of
+    each row."""
+    return token_histograms_masked(a, b, _valid(a, n_tokens))
+
+
+def _valid(a, n_tokens):
+    slot = torch.arange(a.shape[1], device=a.device)[None, :]
+    return slot < n_tokens.to(torch.int64)[:, None]
+
+
+def block_code_lengths(lit_freq, dist_freq):
+    """Package-merge (15-bit limit) of each block's frequencies, one host
+    call per block and alphabet: ((B, 286), (B, 30)) int32 numpy."""
+    lf, df = lit_freq.cpu().numpy(), dist_freq.cpu().numpy()
+    return (np.stack([package_merge_lengths(f, C.MAX_BITWIDTH) for f in lf]),
+            np.stack([package_merge_lengths(f, C.MAX_BITWIDTH) for f in df]))
+
+
+def block_tables(lit_lengths, dist_lengths):
+    """(lit_rev, lit_w, dist_rev, dist_w), (B, L) int32 numpy, of each
+    block's code lengths."""
+    lit = [encoder_tables(x) for x in lit_lengths]
+    dist = [encoder_tables(x) for x in dist_lengths]
+    return (np.stack([t[0] for t in lit]), np.stack([t[1] for t in lit]),
+            np.stack([t[0] for t in dist]), np.stack([t[1] for t in dist]))
+
+
+def dynamic_headers(lit_lengths, dist_lengths, bfinal):
+    """:func:`dynamic_header_fields` of each block: (hdr_vals (B, 23),
+    hdr_widths, len_vals (B, 316), len_widths), int32 numpy."""
+    parts = [dynamic_header_fields(ll, dl, int(bf))
+             for ll, dl, bf in zip(lit_lengths, dist_lengths, bfinal)]
+    return tuple(np.stack([p[k] for p in parts]) for k in range(4))
+
+
+def fixed_headers(bfinal):
+    """A fixed block's header fields in the dynamic layout: its 3-bit
+    BFINAL / BTYPE field, then width-0 fields."""
+    bsz = len(bfinal)
+    hdrv = np.zeros((bsz, N_HEADER_FIELDS), np.int32)
+    hdrw = np.zeros((bsz, N_HEADER_FIELDS), np.int32)
+    hdrv[:, 0] = np.asarray(bfinal, np.int32) | (C.BTYPE_FIXED << 1)
+    hdrw[:, 0] = 3
+    zero = np.zeros((bsz, N_LENGTH_FIELDS), np.int32)
+    return hdrv, hdrw, zero, zero.copy()
+
+
+def assemble_fields(header, tok_fields, eob_v, eob_w):
+    """(values, widths) (B, 339 + 2M + 1) int32 on the tokens' device:
+    header, code lengths, (f1, f2) of every slot, end of block.  The four
+    header arrays and the end-of-block code are one row shared by every
+    block (1-D, a scalar) or one row a block (2-D, (B,))."""
+    f1v, f1w, f2v, f2w = tok_fields
+    bsz, m = f1v.shape
+
+    def host(x, width=None):
+        x = np.asarray(x, np.int32)
+        x = x.reshape(-1, 1) if width == 1 else np.atleast_2d(x)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            f1v.device).expand(bsz, -1)
+
+    hdrv, hdrw, lenv, lenw = (host(x) for x in header)
+    tokv = torch.stack([f1v, f2v], dim=2).reshape(bsz, 2 * m)
+    tokw = torch.stack([f1w, f2w], dim=2).reshape(bsz, 2 * m)
+    values = torch.cat([hdrv, lenv, tokv, host(eob_v, 1)], dim=1)
+    widths = torch.cat([hdrw, lenw, tokw, host(eob_w, 1)], dim=1)
+    return values, widths
+
+
+def encode_block_fields(a, b, n_tokens, bfinal, block_type: str = "dynamic"):
+    """The (values, widths) field rows of B blocks, (B, 339 + 2M + 1)
+    int32 on the tokens' device.
+
+    a, b: (B, M) tokens; n_tokens (B,); bfinal: (B,) host ints.
+    ``block_type`` "dynamic" (each block's own package-merged codes),
+    "fixed" (the 288-symbol fixed code) or "auto" (both, and per block
+    the one with fewer bits; a tie takes dynamic).
+    """
+    if block_type == "auto":
+        dv, dw = encode_block_fields(a, b, n_tokens, bfinal, "dynamic")
+        fv, fw = encode_block_fields(a, b, n_tokens, bfinal, "fixed")
+        use_dyn = (dw.sum(dim=1, dtype=torch.int64)
+                   <= fw.sum(dim=1, dtype=torch.int64))[:, None]
+        return torch.where(use_dyn, dv, fv), torch.where(use_dyn, dw, fw)
+    if block_type not in ("dynamic", "fixed"):
+        raise ValueError(f"unknown block_type {block_type!r}")
+    bfinal = np.asarray(bfinal, np.int32)
+    if block_type == "dynamic":
+        lit_l, dist_l = block_code_lengths(*token_histograms(a, b,
+                                                             n_tokens))
+        header = dynamic_headers(lit_l, dist_l, bfinal)
+    else:
+        # the full 288-symbol alphabet: symbols 286 / 287 shift the
+        # canonical 9-bit codes even though they are never sent
+        lit_l = np.broadcast_to(C.fixed_litlen_lengths(), (len(bfinal), 288))
+        dist_l = np.broadcast_to(C.fixed_dist_lengths(), (len(bfinal), 30))
+        header = fixed_headers(bfinal)
+    tabs = block_tables(lit_l, dist_l)
+    fields = token_fields(a, b, field_tables(*tabs, a.device), n_tokens)
+    return assemble_fields(header, fields, tabs[0][:, C.END_OF_BLOCK],
+                           tabs[1][:, C.END_OF_BLOCK])
+
+
+def encode_block(a, b, n_tokens, bfinal, block_type: str = "dynamic"):
+    """B blocks' bit streams: (words (B, W) int32, bits (B,) int64); the
+    reference's ``encode_block`` vmapped, its ``encode_blocks``."""
+    return pack_fields_batch(*encode_block_fields(a, b, n_tokens, bfinal,
+                                                  block_type))
 
 
 def splice_blocks_host(words: np.ndarray, bits: np.ndarray) -> bytes:

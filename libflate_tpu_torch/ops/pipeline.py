@@ -1,12 +1,21 @@
-"""The shared-table sync encode of one batch of members (counterpart of
-``libflate_tpu/ops/pipeline.py``: ``_lengths_stage`` (``:98-196``),
-``_compose_cand`` (``:70``, fused into the gather kernel),
+"""The device encodes of the port: the shared-table sync encode of one
+batch of PGZF members, and the generic engine's raw-DEFLATE encode
+(counterpart of ``libflate_tpu/ops/pipeline.py``: ``_lengths_stage``
+(``:98-196``), ``_compose_cand`` (``:70``, fused into the gather kernel),
 ``_tokenize_padded`` (``:208``), ``_device_knobs`` (``:270``),
 ``_shared_stats`` (``:366``), ``_shared_header`` (``:397``, inlined),
-``_shared_tokens_kernel`` (``:428``), ``_shared_assemble`` (``:412``),
+``_shared_tokens_kernel`` (``:428``), ``_shared_assemble`` (``:412``, as
+``deflate_encode.assemble_fields``),
 ``_pack_chunks_device`` (``:551``), ``_sync_offsets_padded`` (``:638``),
 ``_sync_cols_tail`` (``:797``) and ``_encode_batch_sync_cols``
-(``:767``)).
+(``:767``); for the generic engine ``_tokenize_batch``,
+``_tokenize_tail`` and ``_tokenize_batch_any`` (``:30-67``),
+``_fields_batch`` (``:302``) and ``_fields_batch_pallas`` (``:318``),
+both as ``deflate_encode.encode_block_fields``, ``_pack_batch``
+(``:311``, as ``deflate_encode.encode_block``), ``_use_pallas`` (``:496``, as
+:func:`use_kernel_branches`), ``_encode_batch`` (``:506``, its non-shared
+branches), ``_encode_batch_literal`` (``:846``) and ``deflate_device``
+(``:859``)).
 
 One batch runs, on the batch's device::
 
@@ -32,6 +41,27 @@ the parse ``cap``.  By default: the sort matcher, window 32768, lazy, one
 candidate, and lengths capped at 16 by the sort matcher's exact prefix
 (the LCP kernel is skipped).  Shared code lengths are capped at 10
 (litlen) and 8 (distance).
+
+The generic engine (:func:`deflate_device`) cuts its input into blocks of
+``min(block_size, 65536)`` bytes, each an independent DEFLATE block with
+its own codes, the last one final, and encodes them on the device::
+
+    candidates        hash_candidates (csrc/hash.cu) on the card when
+                      the batch, padded to a power of two, is 128
+                      blocks; else lz77.prefix_candidates (a sort)
+    tokenize          lz77 glue: match lengths (6 rounds after hash
+                      candidates, exact after the sort), the parse
+                      kernels (csrc/parse.cu), compaction
+    fields            histograms (glue), package-merge and headers
+                      (host), token fields: token_fields (csrc/fields.cu)
+                      with each block's own tables, fixed or dynamic
+    pack              bitpack glue
+    splice            host, numpy
+
+``block_type="stored"`` writes stored blocks on the host;
+``matcher="none"`` codes every byte as a literal.  The streams are the
+reference's on its TPU branches byte for byte (its CPU run takes the
+glue branches, :func:`use_kernel_branches` False).
 """
 from __future__ import annotations
 
@@ -41,9 +71,12 @@ import numpy as np
 import torch
 
 from ..spec import constants as C
+from . import lz77
 from .checksum import crc32_f_rows
 from .deflate_encode import (N_HEADER_FIELDS, N_LENGTH_FIELDS,
-                             dynamic_header_fields, encoder_tables)
+                             assemble_fields, dynamic_header_fields,
+                             encode_block, encoder_tables,
+                             splice_blocks_host)
 from .fields import field_tables, token_fields
 from .gather import gather_rows
 from .hash_match import prefix_candidates
@@ -188,32 +221,13 @@ def shared_stats(a, b, valid, max_len: int = SHARED_MAX_LEN):
     return lit_lengths, dist_lengths, lit_rev, lit_w, dist_rev, dist_w
 
 
-def shared_assemble(f1v, f1w, f2v, f2w, hdrv, hdrw, lenv, lenw, eob_v,
-                    eob_w):
-    """Member field rows: header + code lengths + (f1, f2) per token slot
-    + end of block; (B, 339 + 2M + 1) values and widths."""
-    bsz, m = f1v.shape
-    dev = f1v.device
-
-    def rep(x):
-        return torch.as_tensor(np.asarray(x, np.int32), device=dev)[
-            None, :].expand(bsz, -1)
-
-    tokv = torch.stack([f1v, f2v], dim=2).reshape(bsz, 2 * m)
-    tokw = torch.stack([f1w, f2w], dim=2).reshape(bsz, 2 * m)
-    values = torch.cat([rep(hdrv), rep(lenv), tokv, rep([eob_v])], dim=1)
-    widths = torch.cat([rep(hdrw), rep(lenw), tokw, rep([eob_w])], dim=1)
-    return values, widths
-
-
 def shared_tokens(a, b, valid, lit_rev, lit_w, dist_rev, dist_w, header):
     """Token fields of the padded slots (holes: a = -1) with the shared
     tables, assembled into member field rows."""
     tables = field_tables(lit_rev, lit_w, dist_rev, dist_w, a.device)
-    f1v, f1w, f2v, f2w = token_fields(torch.where(valid, a, -1), b, tables)
-    return shared_assemble(f1v, f1w, f2v, f2w, *header,
-                           int(lit_rev[C.END_OF_BLOCK]),
-                           int(lit_w[C.END_OF_BLOCK]))
+    fields = token_fields(torch.where(valid, a, -1), b, tables)
+    return assemble_fields(header, fields, lit_rev[C.END_OF_BLOCK],
+                           lit_w[C.END_OF_BLOCK])
 
 
 def sync_offsets_padded(widths, valid, k: int, cap: int):
@@ -284,3 +298,116 @@ def encode_batch(blocks: torch.Tensor, n_valid: torch.Tensor, k: int,
             "crc_f": crc32_f_rows(blocks), "overflow": ovf,
             "wide": width_flags(widths),
             "offsets": sync_offsets_padded(widths, valid, k, cap)}
+
+
+#: the generic engine's largest block: large enough to amortize a
+#: block's tables, small enough to expose parallelism
+DEVICE_BLOCK_SIZE = 64 * 1024
+#: the hash kernel's batch in the reference (its lane count); also the
+#: slice of blocks encoded at once
+LANES = 128
+
+
+def use_kernel_branches(device) -> bool:
+    """Whether the generic engine takes the reference's TPU branch (its
+    ``_use_pallas()``) to the hash candidates for a batch of 128.  True
+    on CUDA."""
+    return torch.device(device).type == "cuda"
+
+
+def tokenize_batch(blocks, n_valid):
+    """Sort candidates, exact lengths: (a, b, n_tokens), (B, n + 1)."""
+    return lz77.tokenize_block(blocks, n_valid, blocks.shape[1] + 1)
+
+
+def tokenize_tail(blocks, n_valid, cand):
+    """The tokenizer after hash candidates, lengths capped at 6 rounds."""
+    return lz77.tokenize_block_from_cand(blocks, n_valid,
+                                         blocks.shape[1] + 1, cand,
+                                         max_rounds=KERNEL_LCP_ROUNDS)
+
+
+def tokenize_batch_any(blocks, n_valid, hash_branch: bool):
+    """Hash-kernel candidates when ``hash_branch``, else the sort."""
+    if hash_branch:
+        return tokenize_tail(blocks, n_valid, prefix_candidates(blocks))
+    return tokenize_batch(blocks, n_valid)
+
+
+def encode_batch_generic(blocks, n_valid, bfinal, block_type: str,
+                         hash_branch: bool = False):
+    """(B, n) uint8 blocks (n a multiple of 512, zero past ``n_valid``)
+    -> (words (B, W) int32, bits (B,) int64), each block its own DEFLATE
+    block of ``block_type`` "dynamic", "fixed" or "auto"; ``bfinal``:
+    (B,) host ints."""
+    a, b, cnt = tokenize_batch_any(blocks, n_valid, hash_branch)
+    return encode_block(a, b, cnt, bfinal, block_type)
+
+
+def encode_batch_literal(blocks, n_valid, bfinal, block_type: str):
+    """Literal-only batch encode (``matcher="none"``): every byte a
+    token."""
+    a = blocks.to(torch.int32)
+    return encode_block(a, torch.zeros_like(a), n_valid, bfinal, block_type)
+
+
+def deflate_device(data: bytes, options=None,
+                   device_block_size: int | None = None,
+                   device="cuda") -> bytes:
+    """Compress to a complete raw DEFLATE stream on ``device`` ("cuda"
+    unless the caller asks for "cpu", which runs every kernel's plain
+    version and the glue branches).
+
+    ``options`` (the port's or the reference's ``EncodeOptions``): its
+    ``block_type`` ("dynamic", "fixed", "auto" or "stored"),
+    ``block_size`` and ``matcher`` ("none" for literals only; the other
+    matchers and knobs do not change this engine's stream).  Blocks are
+    ``min(block_size, device_block_size or 65536)`` bytes; on the card a
+    batch of blocks that pads to 128 takes the hash candidates.  Raises
+    RuntimeError for "cuda" without CUDA.
+    """
+    from ..serial.deflate import EncodeOptions, deflate_stored
+    opts = options or EncodeOptions()
+    data = bytes(data)
+    if opts.block_type == "stored":
+        return deflate_stored(data)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        from .. import require_cuda
+        require_cuda()
+    raw = np.frombuffer(data, np.uint8)
+    bs = min(opts.block_size, device_block_size or DEVICE_BLOCK_SIZE)
+    n_blocks = max(1, -(-len(raw) // bs))
+    b_pad = 1 << (n_blocks - 1).bit_length()
+    # the parse kernels take rows of a multiple of 512; zeros past a
+    # block's end change none of its tokens
+    width = -(-bs // CHUNK) * CHUNK
+    n_valid = np.minimum(bs, len(raw) - bs * np.arange(n_blocks)).astype(
+        np.int32)
+    bfinal = np.zeros(n_blocks, np.int32)
+    bfinal[-1] = 1
+    hash_branch = use_kernel_branches(dev) and b_pad == LANES
+    literal = getattr(opts, "matcher", "greedy") == "none"
+    words_l, bits_l = [], []
+    for s0 in range(0, n_blocks, LANES):
+        rows = np.zeros((min(LANES, n_blocks - s0), width), np.uint8)
+        for i in range(rows.shape[0]):
+            chunk = raw[(s0 + i) * bs:(s0 + i + 1) * bs]
+            rows[i, :len(chunk)] = chunk
+        blocks = torch.from_numpy(rows).to(dev)
+        nv = torch.from_numpy(n_valid[s0:s0 + LANES]).to(dev)
+        bf = bfinal[s0:s0 + LANES]
+        if literal:
+            words, bits = encode_batch_literal(blocks, nv, bf,
+                                               opts.block_type)
+        else:
+            words, bits = encode_batch_generic(blocks, nv, bf,
+                                               opts.block_type, hash_branch)
+        bits = bits.cpu().numpy()
+        w_used = int(bits.max(initial=0) + 31) // 32
+        words_l.append(words[:, :w_used].cpu().numpy().view(np.uint32))
+        bits_l.append(bits)
+    w_max = max(w.shape[1] for w in words_l)
+    words = np.concatenate([np.pad(w, ((0, 0), (0, w_max - w.shape[1])))
+                            for w in words_l])
+    return splice_blocks_host(words, np.concatenate(bits_l))

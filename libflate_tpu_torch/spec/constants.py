@@ -104,7 +104,12 @@ GZIP_FHCRC = 1 << 1
 GZIP_FEXTRA = 1 << 2
 GZIP_FNAME = 1 << 3
 GZIP_FCOMMENT = 1 << 4
+GZIP_XFL_SLOWEST = 2
+GZIP_XFL_FASTEST = 4
 GZIP_XFL_UNKNOWN = 0
 GZIP_OS_UNIX = 3
+
+ZLIB_CM_DEFLATE = 8
+ADLER32_MOD = 65521
 
 CRC32_POLY = 0xEDB88320      # CRC-32 (IEEE 802.3), reflected

@@ -1,14 +1,19 @@
-"""CRC-32 GF(2) operators on the host (the port's copy of the parts of
-``libflate_tpu/utils/checksum.py`` that the device CRC path needs).
+"""Host CRC-32 and Adler-32 with their combines, and the CRC-32 GF(2)
+operators of the device CRC path (the port's copy of
+``libflate_tpu/utils/checksum.py:48-195``).
 
 CRC-32 is linear over GF(2): appending n zero bytes multiplies the
-register by a 32x32 bit matrix, kept here as 32 packed columns.
+register by a 32x32 bit matrix, kept here as 32 packed columns, so
+``crc(A || B) = shift(crc(A), len(B)) ^ crc(B)``.  The whole-buffer
+checksums are zlib's (the same values as the reference's numpy loops).
 """
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 
-from ..spec.constants import CRC32_POLY
+from ..spec.constants import ADLER32_MOD, CRC32_POLY
 
 
 def _make_crc_table() -> np.ndarray:
@@ -82,3 +87,31 @@ def gf2_matrix_inverse(cols: np.ndarray) -> np.ndarray:
     for j in range(n):
         out[j] = sum(inv[i][j] << i for i in range(n))
     return out
+
+
+def crc32(data: bytes, crc: int = 0) -> int:
+    """CRC-32 of ``data``, continuing from ``crc``."""
+    return zlib.crc32(data, crc)
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """CRC of the concatenation of two streams from their CRCs alone."""
+    if len2 == 0:
+        return crc1
+    return _gf2_matrix_times(_shift_operator(len2), crc1) ^ crc2
+
+
+def adler32(data: bytes, adler: int = 1) -> int:
+    """Adler-32 of ``data``, continuing from ``adler``."""
+    return zlib.adler32(data, adler)
+
+
+def adler32_combine(ad1: int, ad2: int, len2: int) -> int:
+    """Adler-32 of a concatenation from the two parts' checksums."""
+    m = ADLER32_MOD
+    a1, b1 = ad1 & 0xFFFF, (ad1 >> 16) & 0xFFFF
+    a2, b2 = ad2 & 0xFFFF, (ad2 >> 16) & 0xFFFF
+    rem = len2 % m
+    a = (a1 + a2 - 1) % m
+    b = (b1 + b2 + rem * (a1 - 1)) % m
+    return (b << 16) | a

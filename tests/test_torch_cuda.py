@@ -11,11 +11,13 @@ Every comparison is exact equality: the codec is integer.
 import gzip
 import pathlib
 import struct
+import zlib
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import (decode_hard_cases, generic_shard, member_codes,
                         poison_ls, strip_sync_index)
 from libflate_tpu_torch.formats import pgzf
@@ -686,8 +688,8 @@ def test_hist_fields_pack_kernels_match_plain(enc_batch):
     for got, want in zip(f, fields.token_fields_plain(a_h, b, tables)):
         _eq(got, want)
     header = deflate_encode.dynamic_header_fields(*stats[:2])
-    values, widths = pipeline.shared_assemble(
-        *f, *header, int(stats[2][256]), int(stats[3][256]))
+    values, widths = deflate_encode.assemble_fields(
+        header, f, stats[2][256], stats[3][256])
     pad = (-values.shape[1]) % pack.F_CH
     values = torch.nn.functional.pad(values, (0, pad)).contiguous()
     widths = torch.nn.functional.pad(widths, (0, pad)).contiguous()
@@ -1727,3 +1729,79 @@ def test_inflate_device_on_cuda(dev):
         assert bytes(res.data) == want
         assert res.end_bit == deflate_decode.inflate_device(
             raw, device="cpu").end_bit
+
+
+# ---------------------------------------------------------------------------
+# the generic device engine: the "cuda" engine against the committed
+# reference streams and the "cpu" engine, with its kernels counted
+# ---------------------------------------------------------------------------
+def _generic_counts():
+    ks = (hm.hash_candidates, fields.token_fields, parse.chunk_exits,
+          parse.walk_emit, deflate_decode.decode_symbols)
+    return {chip_smoke.kname(k): k.launches for k in ks}
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.DEFLATE_FIXTURES))
+def test_generic_engine_matches_committed_streams(dev, name, monkeypatch):
+    kind, opts, size = chip_smoke.DEFLATE_FIXTURES[name]
+    want = (DATA / name).read_bytes()
+    plain = chip_smoke.fixture_plain(kind, want)
+    before = _generic_counts()
+    got = chip_smoke.deflate_fixture_stream(kind, opts, size, plain, "cuda")
+    after = _generic_counts()
+    assert got == want
+    literal = opts.get("matcher") == "none"
+    assert (after["hash_match.hash_candidates"]
+            > before["hash_match.hash_candidates"]) == (
+        size == 1024 and not literal)
+    # every block's fields, fixed or dynamic, literal or not
+    assert after["fields.token_fields"] > before["fields.token_fields"]
+    assert (after["parse.walk_emit"] > before["parse.walk_emit"]) == \
+        (not literal)
+    # the cpu engine with the kernel branches on writes the same stream
+    monkeypatch.setattr(pipeline, "use_kernel_branches", lambda d: True)
+    monkeypatch.setattr(pgzf, "use_kernel_branches", lambda d: True)
+    assert chip_smoke.deflate_fixture_stream(kind, opts, size, plain,
+                                             "cpu") == want
+    monkeypatch.undo()
+    before = _generic_counts()
+    assert chip_smoke.deflate_fixture_decode(kind, got, "cuda") == plain
+    assert _generic_counts()["deflate_decode.decode_symbols"] > \
+        before["deflate_decode.decode_symbols"]
+
+
+@pytest.mark.parametrize("kw", [{}, {"block_type": "fixed"},
+                                {"block_type": "auto"},
+                                {"matcher": "none"}])
+def test_generic_engine_sort_branch_equals_cpu_engine(dev, kw):
+    from libflate_tpu_torch.formats import deflate as fdeflate
+    from libflate_tpu_torch.serial.deflate import EncodeOptions
+    plain = gzip.decompress((DATA / "pgzf_encode_small.pgz").read_bytes())
+    opts = EncodeOptions(block_size=8192, **kw)
+    got = fdeflate.compress(plain, opts, engine="cuda")
+    assert got == fdeflate.compress(plain, opts, engine="cpu")
+    assert zlib.decompress(got, -15) == plain
+
+
+def test_generic_engine_checksums_on_cuda(dev):
+    from libflate_tpu_torch import backend
+    eng = backend.get("cuda")
+    assert backend.get(None) is eng
+    blob = np.random.default_rng(5).integers(0, 256, 1 << 20,
+                                             np.uint8).tobytes()
+    assert eng.crc32(blob) == zlib.crc32(blob)
+    assert eng.adler32(blob) == zlib.adler32(blob)
+    assert eng.crc32(blob[7:], zlib.crc32(blob[:7])) == zlib.crc32(blob)
+    assert eng.adler32(blob[7:], zlib.adler32(blob[:7])) == \
+        zlib.adler32(blob)
+
+
+def test_decompress_repaired_faults_on_cuda(dev):
+    big = np.random.default_rng(6).integers(0, 256, 2 << 20,
+                                            np.uint8).tobytes()
+    stream = gzip.compress(b"small", mtime=0) + gzip.compress(
+        big, compresslevel=0, mtime=0)
+    assert pgzf.decompress(stream, device="cuda") == b"small" + big
+    with pytest.raises(EOFError):
+        pgzf.decompress(gzip.compress(bytes(range(256)) * 300)[:12],
+                        device="cuda")

@@ -174,9 +174,9 @@ def test_device_knobs_match_reference(kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"matcher": "none"}, "serial encoder"),
-    ({"block_type": "stored"}, "serial encoder"),
-    ({"block_type": "fixed"}, "generic device engine"),
+    ({"block_type": "bogus"}, "unknown block_type"),
+    ({"block_type": "huffman"}, "unknown block_type"),
+    ({"matcher": "lz4"}, "unknown matcher"),
     ({"matcher": "bogus"}, "unknown matcher"),
     ({"window_size": 1000}, "window_size"),
     ({"window_size": 65536}, "window_size")])

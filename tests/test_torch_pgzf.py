@@ -202,6 +202,21 @@ assert gzip.decompress(pgzf.compress(data, 1024, options=chain8,
 import os
 os.environ["LIBFLATE_DEVICE_MATCHER"] = "hash"
 assert gzip.decompress(pgzf.compress(data, 1024, device="cpu")) == data
+# the generic engine: the three containers on "cpu", pgzf's fixed-block
+# and per-member routes, the gzip fallback for a member over 1 MiB
+from libflate_tpu_torch.formats import deflate, gzip as fgzip, zlib as fzlib
+assert zlib.decompress(deflate.compress(data, engine="cpu"), -15) == data
+assert deflate.decompress(zlib.compress(data)[2:-4], engine="cpu") == data
+assert fzlib.decompress(fzlib.compress(data, engine="cpu"),
+                        engine="cpu") == data
+assert fgzip.decompress(fgzip.compress(data, engine="cpu"),
+                        engine="cpu") == data
+for opts in (EncodeOptions(block_type="fixed"), EncodeOptions(matcher="none"),
+             EncodeOptions(block_type="stored")):
+    assert gzip.decompress(pgzf.compress(data, 1024, options=opts,
+                                         device="cpu")) == data
+big = gzip.compress(rnd * 400, compresslevel=0)
+assert pgzf.decompress(big, device="cpu") == rnd * 400
 blocked = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "libflate_tpu")]
 assert not blocked, blocked
@@ -214,13 +229,15 @@ def test_imports_and_runs_with_jax_blocked(small):
     sync path, with the LS index stripped the speculative path, and stdlib
     gzip and stored members the foreign-stream path with its host token
     decoder; to bytes by ``decompress`` through its sync and generic
-    branches; a raw stream by ``inflate_device``) and encode (by default,
-    in chain-8 quality mode and with the hash matcher) with both JAX and
-    the reference package blocked."""
+    branches and, for a member over 1 MiB, the gzip container; a raw
+    stream by ``inflate_device``), encode (by default, in chain-8 quality
+    mode, with the hash matcher, with fixed blocks, literals only and
+    stored blocks) and run the raw DEFLATE, zlib and gzip containers on
+    the "cpu" engine with both JAX and the reference package blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n_mods, n_bytes = map(int, res.stdout.split())
-    assert n_mods >= 26
+    assert n_mods >= 31
     assert n_bytes == len(gzip.decompress(small))
