@@ -142,6 +142,28 @@ Phases, each of which raises on failure (exit code != 0):
    kernel's row: ``hash_candidates``, ``token_fields``, the parse
    kernels and ``decode_symbols``.
 
+11. the host surface over the ``cuda`` engine: (11a) odd member sizes:
+   the first batch of 128 x 65024-byte members (``ODD_MEMBER``, 127 x
+   512, the glue LCP) through each encode kernel against its plain
+   version, ``pgzf.compress(64 MiB, member_size=65024)`` counted (each
+   kernel at least once a batch, no LCP, gather or hash kernel), read
+   back by stdlib gzip and ``pgzf.decompress``, and 1000 / 512 / 131072
+   refused with ValueError (the odd-size reference streams are phase 8's);
+   (11b) the façades: ``gzip.Encoder`` of 8 MiB in 1 MiB writes equal to
+   ``gzip.compress`` with the same launches, a SYNC-flushed zlib stream
+   read by stdlib zlib, ``Decoder`` / ``MultiDecoder`` on two members, a
+   flipped byte's salvage equal to the serial engine's ``.partial``;
+   (11c) the serial engine on 1 MiB, ``BlockStreamer`` in 64 KiB writes
+   equal to the one-shot, the chunked gzip decoder over the 8 MiB stream
+   in 4 KiB feeds; (11d) the CLI as a subprocess (``--engine cuda``:
+   gzip-encode, gzip-decode, pgzf-encode, pgzf-decode; ``--stream``
+   gzip-encode / gzip-decode), each verified by stdlib gzip; (11e)
+   ``token_hist`` on slots over all of int32 and ``rank_emit_src`` on
+   ``rank_hard_cases`` (past the reference's 128-wide search), each
+   against its plain version, and both on the main path's inputs again,
+   each launched 48 times; (11f) every call's host clock (median of 3)
+   and peak device memory, with the card's name and power limit.
+
 Kernels are keyed by module and function (``parse.walk_emit`` and
 ``decode.walk_emit`` are two kernels).
 
@@ -179,7 +201,15 @@ REFERENCE_OPTIONS = {
     "pgzf_encode_chain8_w2048_8k.pgz": ({**QUALITY, "window_size": 2048},
                                         "sort"),
     "pgzf_encode_hash_small.pgz": (None, "hash"),
+    "pgzf_encode_odd_1536_hash.pgz": (None, "hash"),
+    "pgzf_encode_odd_512_hash.pgz": (None, "hash"),
+    "pgzf_encode_odd_65024_hash.pgz": (None, "hash"),
+    "pgzf_encode_odd_131072_hash.pgz": (None, "hash"),
 }
+#: phase 11a's member size: the largest non-multiple of 1024 that the
+#: reference's dynamic kernel branch takes with the sort matcher (127 x
+#: 512; it refuses sizes that are not multiples of 512)
+ODD_MEMBER = 65024
 #: the generic engine's committed reference streams, written by
 #: scripts/make_deflate_device_fixture.py: name -> (call, EncodeOptions
 #: fields, deflate_device's block size or pgzf's member size)
@@ -1567,11 +1597,13 @@ def main() -> None:
             v_.view(torch.uint8).data_ptr(), a_.numel(), bins_a.data_ptr(),
             hist_state.data_ptr())
 
+    rk_flags = rank.tile_flags(bsz, cap, dev)
+
     def rank_alone(st_, pk_, va_, no_):
         return lambda: _build.launch(
             "lf_rank_emit_src", st_.data_ptr(), va_.data_ptr(),
             pk_.data_ptr(), no_.data_ptr(), src_a.data_ptr(),
-            lit_a.data_ptr(), bsz, st_.shape[1], cap)
+            lit_a.data_ptr(), rk_flags.data_ptr(), bsz, st_.shape[1], cap)
 
     def resolve_alone(s_, l_, o_):
         return lambda: _build.launch(
@@ -2096,6 +2128,11 @@ def main() -> None:
     # route, and decompress's two repaired faults
     generic_engine(dev, card_line, data, blocks, nv, hcand, errs, row)
 
+    # 11. the host surface over the cuda engine: odd member sizes, the
+    # streaming facades, the serial engine and chunked decoders, the CLI,
+    # and the two repaired kernels on their hard inputs
+    port_surface(dev, card_line, data, rk_args, (a, b, valid), errs, row)
+
     print(json.dumps({"kernels": summary}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
@@ -2416,6 +2453,375 @@ def generic_engine(dev, card_line: str, data: bytes, blocks, nv, hcand,
         f"deflate.decompress(8 MiB stream, 128 blocks) {de_ms:.2f}, engine "
         f"crc32(64 MiB) {crc_ms:.2f}, adler32(64 MiB) {adl_ms:.2f}; "
         f"pgzf.compress(64 MiB, fixed) {pf_ms:.2f} [{card_line}]")
+
+
+def rank_hard_cases(dev):
+    """rank_emit_src inputs past the reference's 128-wide search, at out_cap
+    2048: three literals, 124 zero-length matches, a literal and a 258-byte
+    match (the smallest such input); 300 zero-length matches at one start;
+    2,000 at position 3, past the 2048-slot window; the first member's
+    starts moved 5 on (no token covers positions 0-4)."""
+    from libflate_tpu_torch.ops import device_expand
+
+    def m(length, dist):
+        return length | dist << 9
+
+    members = [[97, 98, 99] + [m(0, 2)] * 124 + [122, m(258, 1)],
+               [97, 98] + [m(0, 1)] * 300 + [m(30, 2)] + [120] * 40,
+               [97, 98, 99] + [m(0, 3)] * 2000 + [m(200, 3)] * 5,
+               [97, 98, 99] + [m(0, 2)] * 124 + [122, m(258, 1)]]
+    packed = torch.zeros((len(members), 2100), dtype=torch.int32)
+    for i, toks in enumerate(members):
+        packed[i, :len(toks)] = torch.tensor(toks, dtype=torch.int32)
+    n_tok = torch.tensor([len(t) for t in members], dtype=torch.int32)
+    starts, pk, valid, n_out, _err = device_expand.rank_inputs(
+        packed, n_tok, 2048)
+    starts[3] = (starts[3] + 5).clamp(max=2047)
+    return tuple(x.to(dev) for x in (starts, pk, valid, n_out)) + (2048,)
+
+
+def odd_batch_vs_plain(blocks, nv) -> dict:
+    """The dynamic encode's kernels on one batch of odd-size members, each
+    against its plain version on that batch's own inputs: max_abs_err by
+    kernel (the LCP is the torch glue at these widths)."""
+    from libflate_tpu_torch.ops import (deflate_encode, fields, hist, pack,
+                                        parse, pipeline)
+    from libflate_tpu_torch.ops import sort_match as sm
+    keys = sm.prefix_keys(blocks)
+    sk, sp = sm.sort_keys(keys)
+    e = {kname(sm.sort_keys): max(
+        max_abs_err(x, y) for x, y in zip((sk, sp), sm.sort_keys_plain(keys)))}
+    cand, m4 = sm.scan_emit(sk, sp, blocks)
+    e[kname(sm.scan_emit)] = max(max_abs_err(x, y) for x, y in zip(
+        (cand, m4), sm.scan_emit_plain(sk, sp, blocks)))
+    cand2, lens = pipeline.lengths_stage(blocks, nv, cand, m4)
+    jump, tok = parse.parse_inputs(blocks, nv, cand2, lens)
+    ex = parse.chunk_exits(jump)
+    e[kname(parse.chunk_exits)] = max_abs_err(ex, parse.chunk_exits_plain(
+        jump))
+    slots, ovf = parse.walk_emit(jump, tok, ex, pipeline.PARSE_CAP)
+    e[kname(parse.walk_emit)] = max(max_abs_err(x, y) for x, y in zip(
+        (slots, ovf), parse.walk_emit_plain(jump, tok, ex,
+                                            pipeline.PARSE_CAP)))
+    valid = slots >= 0
+    a = torch.where(valid, slots & 511, 0)
+    b = torch.where(valid, slots >> 9, 0)
+    e[kname(hist.token_hist)] = max_abs_err(hist.token_hist(a, b, valid),
+                                            hist.token_hist_plain(a, b, valid))
+    stats = pipeline.shared_stats(a, b, valid)
+    header = deflate_encode.dynamic_header_fields(*stats[:2])
+    tables = fields.field_tables(*stats[2:], blocks.device)
+    a_h = torch.where(valid, a, -1)
+    fv = fields.token_fields(a_h, b, tables)
+    e[kname(fields.token_fields)] = max(max_abs_err(x, y) for x, y in zip(
+        fv, fields.token_fields_plain(a_h, b, tables)))
+    values, widths = deflate_encode.assemble_fields(
+        header, fv, stats[2][256], stats[3][256])
+    fpad = (-values.shape[1]) % pack.F_CH
+    values = torch.nn.functional.pad(values, (0, fpad)).contiguous()
+    widths = torch.nn.functional.pad(widths, (0, fpad)).contiguous()
+    starts, bits = pack.chunk_starts(widths)
+    cstarts = starts[:, :-1].contiguous()
+    w_out = (int(bits.max()) + 31) // 32 + 1
+    e[kname(pack.pack_stitch)] = max_abs_err(
+        pack.pack_stitch(values, widths, cstarts, w_out),
+        pack.pack_stitch_plain(values, widths, cstarts, w_out))
+    torch.cuda.synchronize()
+    return e
+
+
+def port_surface(dev, card_line: str, data: bytes, rk_args, hist_args,
+                 errs: dict, row: dict) -> None:
+    """Phase 11.  ``data``: the 64 MiB encode input; ``rk_args``: the
+    decode shard's rank inputs (phase 4); ``hist_args``: phase 6's encode
+    batch slots (a, b, valid).  Adds the odd-size encode's launches and
+    the repaired kernels' errors to ``row`` / ``errs``."""
+    import io
+
+    import numpy as np
+
+    from libflate_tpu_torch import chunked
+    from libflate_tpu_torch.formats import deflate as fdeflate
+    from libflate_tpu_torch.formats import gzip as fgzip
+    from libflate_tpu_torch.formats import pgzf
+    from libflate_tpu_torch.formats import zlib as fzlib
+    from libflate_tpu_torch.ops import (deflate_decode, expand, fields,
+                                        gather, hist, lcp, pack, parse, rank)
+    from libflate_tpu_torch.ops import hash_match as hm
+    from libflate_tpu_torch.ops import sort_match as sm
+    from libflate_tpu_torch.ops import sync_decode as sd
+    from libflate_tpu_torch.serial import deflate as sdeflate
+    odd_kernels = (sm.sort_keys, sm.scan_emit, parse.chunk_exits,
+                   parse.walk_emit, hist.token_hist, fields.token_fields,
+                   pack.pack_stitch)
+    kernels = odd_kernels + (lcp.match_lengths, gather.gather_rows,
+                             hm.hash_candidates, sd.sync_decode,
+                             rank.rank_emit_src, expand.resolve_bytes,
+                             deflate_decode.decode_symbols)
+    times: dict = {}
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {kname(k): k.launches for k in kernels if k.launches}
+
+    def timed(what: str, fn, reps: int = 3):
+        """``fn()`` ``reps`` times: the first result, and the median host
+        time and the peak device memory above what was allocated before
+        into ``times``."""
+        walls, out = [], None
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(reps):
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if i == 0:
+                out = res
+        times[what] = (statistics.median(walls) * 1e3,
+                       (torch.cuda.max_memory_allocated() - base) / 2**20)
+        return out
+
+    # 11a. odd member sizes: the first batch's kernels against their plain
+    # versions, the 64 MiB counted, read back, the reference streams
+    n_b = pgzf.DEV_BATCH
+    ob = torch.frombuffer(bytearray(data[:n_b * ODD_MEMBER]),
+                          dtype=torch.uint8).view(n_b, ODD_MEMBER).to(dev)
+    onv = torch.full((n_b,), ODD_MEMBER, dtype=torch.int32, device=dev)
+    odd_errs = odd_batch_vs_plain(ob, onv)
+    del ob
+    for k, e in odd_errs.items():
+        errs[k] = max(errs[k], e)
+        row[k]["max_abs_err"] = errs[k]
+    log(f"odd member size {ODD_MEMBER}: the first batch's kernels vs plain "
+        f"at {n_b} x {ODD_MEMBER}: max_abs_err {odd_errs}")
+    if any(odd_errs.values()):
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             "the odd member size")
+    s_odd, c_odd = counted(lambda: pgzf.compress(
+        data, member_size=ODD_MEMBER, device="cuda"))
+    n_batches = -(-((len(data) + ODD_MEMBER - 1) // ODD_MEMBER) // n_b)
+    # at least once a batch (a batch that overflows the parse cap runs
+    # again at 512); the match lengths are the glue's at this width
+    if (any(c_odd.get(kname(k), 0) < n_batches for k in odd_kernels)
+            or any(c_odd.get(kname(k), 0) for k in
+                   (lcp.match_lengths, gather.gather_rows,
+                    hm.hash_candidates))):
+        raise AssertionError(f"odd-size compress launches {c_odd}: want "
+                             f"each of {[kname(k) for k in odd_kernels]} "
+                             f"at least {n_batches} times and no LCP, "
+                             f"gather or hash kernel")
+    if gzip.decompress(s_odd) != data:
+        raise AssertionError("stdlib gzip does not read back the odd-size "
+                             "stream")
+    back, c_back = counted(lambda: pgzf.decompress(s_odd, device="cuda"))
+    if back != data:
+        raise AssertionError("pgzf.decompress does not read back the "
+                             "odd-size stream")
+    for k in odd_kernels:
+        row[kname(k)]["launches"] += c_odd[kname(k)]
+    log(f"pgzf.compress(64 MiB, member_size={ODD_MEMBER}, device='cuda'): "
+        f"launches {c_odd}; {len(data)} -> {len(s_odd)} bytes (ratio "
+        f"{len(s_odd) / len(data):.6f}), read back by stdlib gzip and by "
+        f"pgzf.decompress(device='cuda') (launches {c_back})")
+    timed("pgzf.compress(64 MiB, 65024-byte members)", lambda: pgzf.compress(
+        data, member_size=ODD_MEMBER, device="cuda"))
+    timed("pgzf.decompress(65024-byte members)", lambda: pgzf.decompress(
+        s_odd, device="cuda"))
+    for bad in (1000, 512, 131072):
+        try:
+            pgzf.compress(data[:4096], member_size=bad, device="cuda")
+        except ValueError as e:
+            log(f"member_size {bad}: ValueError: {e}")
+        else:
+            raise AssertionError(f"member_size {bad} was not refused")
+    del s_odd, back
+
+    # 11b. the facades at full width on the cuda engine
+    p8 = data[:8 << 20]
+    g8, c_g8 = counted(lambda: fgzip.compress(p8, engine="cuda"))
+
+    def gzip_encoder():
+        enc = fgzip.Encoder(engine="cuda")
+        for i in range(0, len(p8), 1 << 20):
+            enc.write(p8[i:i + (1 << 20)])
+        return enc.getvalue()
+
+    ge8, c_ge8 = counted(gzip_encoder)
+    if ge8 != g8 or c_ge8 != c_g8:
+        raise AssertionError(f"gzip.Encoder differs from gzip.compress: "
+                             f"launches {c_ge8} vs {c_g8}")
+    timed("gzip.Encoder(cuda), 8 MiB in 1 MiB writes", gzip_encoder)
+
+    def zlib_sync():
+        enc = fzlib.Encoder(engine="cuda", flush_mode=fzlib.FlushMode.SYNC)
+        for i in range(0, len(p8), 1 << 20):
+            enc.write(p8[i:i + (1 << 20)])
+            if i + (1 << 20) == 4 << 20:
+                enc.flush()
+        return enc.getvalue()
+
+    zs8 = timed("zlib.Encoder(cuda, SYNC flush at 4 MiB), 8 MiB", zlib_sync)
+    if zlib.decompress(zs8) != p8 or b"\x00\x00\xff\xff" not in zs8:
+        raise AssertionError("stdlib zlib does not read the sync-flushed "
+                             "stream")
+    tail = data[8 << 20:(8 << 20) + (256 << 10)]
+    two = g8 + gzip.compress(tail, mtime=0)
+
+    def read_with_header(cls):
+        dec = cls(two, engine="cuda")
+        return dec.header.mtime, dec.read()
+
+    dec1 = timed("gzip.Decoder(cuda), 8 MiB member",
+                 lambda: read_with_header(fgzip.Decoder))
+    decm = timed("gzip.MultiDecoder(cuda), 8 MiB + 256 KiB members",
+                 lambda: read_with_header(fgzip.MultiDecoder))
+    if dec1 != (0, p8) or decm != (0, p8 + tail):
+        raise AssertionError("gzip.Decoder / MultiDecoder read wrong bytes")
+    raw8 = g8[10:-8]
+    for pos in range(len(raw8) // 2, len(raw8)):
+        flipped = bytearray(raw8)
+        flipped[pos] ^= 0x10
+        try:
+            zlib.decompress(bytes(flipped), -15)
+        except zlib.error:
+            break
+    flipped = bytes(flipped)
+    salv = timed("deflate.Decoder(cuda) of the 8 MiB with a byte flipped "
+                 "(serial salvage)", lambda: fdeflate.Decoder(
+                     flipped, engine="cuda"))
+    try:
+        sdeflate.inflate(flipped)
+        serial_partial = None
+    except (sdeflate.DeflateError, EOFError) as e:
+        serial_partial = e.partial
+    try:
+        salv.read()
+    except (sdeflate.DeflateError, EOFError) as e:
+        read_error = type(e).__name__
+    else:
+        raise AssertionError("deflate.Decoder.read() did not raise")
+    if salv.unread_decoded_data() != serial_partial:
+        raise AssertionError("the salvage differs from the serial .partial")
+    log(f"facades on cuda: gzip.Encoder of 8 MiB in 1 MiB writes equals "
+        f"gzip.compress ({len(g8)} bytes, launches {c_ge8}); the SYNC "
+        f"zlib stream ({len(zs8)} bytes) read by stdlib zlib; Decoder / "
+        f"MultiDecoder on two members read back; the stream flipped at "
+        f"byte {pos} of {len(raw8)}: read() raises {read_error}, salvage "
+        f"{len(serial_partial)} bytes, equal to the serial .partial")
+
+    # 11c. the host paths: the serial engine, BlockStreamer, chunked
+    p1 = data[:1 << 20]
+    s1 = timed("serial deflate(1 MiB)", lambda: sdeflate.deflate(p1))
+    b1 = timed("serial inflate(1 MiB stream)", lambda: bytes(
+        sdeflate.inflate(s1).data))
+
+    def streamer():
+        bs = fdeflate.BlockStreamer()
+        out = [bs.feed(p1[i:i + 65536]) for i in range(0, len(p1), 65536)]
+        return b"".join(out) + bs.finish()
+
+    st1 = timed("BlockStreamer(1 MiB in 64 KiB writes)", streamer)
+    if b1 != p1 or st1 != s1 or zlib.decompress(s1, -15) != p1:
+        raise AssertionError("the serial engine's 1 MiB round trip failed")
+
+    def chunked_feed():
+        dec = chunked.ChunkedGzipDecoder()
+        out = [dec.feed(ge8[i:i + 4096]) for i in range(0, len(ge8), 4096)]
+        dec.finish()
+        return b"".join(out)
+
+    if timed("ChunkedGzipDecoder, 8 MiB stream in 4 KiB feeds",
+             chunked_feed) != p8:
+        raise AssertionError("the chunked decoder read wrong bytes")
+    log(f"host paths: serial deflate / inflate of 1 MiB ({len(s1)} bytes, "
+        f"ratio {len(s1) / len(p1):.6f}), BlockStreamer in 64 KiB writes "
+        f"equal to the one-shot, the chunked gzip decoder over the 8 MiB "
+        f"stream in 4 KiB feeds")
+
+    # 11d. the CLI as a subprocess on the 8 MiB corpus
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        src = tmp / "corpus"
+        src.write_bytes(p8)
+        runs = [("gzip-encode", src, "g.gz", []),
+                ("gzip-decode", "g.gz", "g.out", []),
+                ("pgzf-encode", src, "p.pgz", []),
+                ("pgzf-decode", "p.pgz", "p.out", []),
+                ("gzip-encode", src, "s.gz", ["--stream"]),
+                ("gzip-decode", "s.gz", "s.out", ["--stream"])]
+        for cmd, inp, out, extra in runs:
+            inp = inp if isinstance(inp, pathlib.Path) else tmp / inp
+            argv = [sys.executable, "-m", "libflate_tpu_torch.cli", "-i",
+                    str(inp), "-o", str(tmp / out), "--engine", "cuda",
+                    *extra, cmd]
+
+            def run_cli(argv=argv):
+                res = subprocess.run(argv, cwd=ROOT, capture_output=True,
+                                     text=True, timeout=300)
+                if res.returncode:
+                    raise AssertionError(f"{argv[3:]} exit "
+                                         f"{res.returncode}: {res.stderr}")
+
+            timed(f"cli {' '.join(extra + [cmd])} (subprocess)", run_cli)
+            blob = (tmp / out).read_bytes()
+            ok = (gzip.decompress(blob) == p8 if out.endswith(("gz", "pgz"))
+                  else blob == p8)
+            if not ok:
+                raise AssertionError(f"cli {cmd} {extra}: wrong output")
+        log("cli on the 8 MiB corpus, --engine cuda: gzip-encode, "
+            "gzip-decode, pgzf-encode, pgzf-decode, and --stream "
+            "gzip-encode / gzip-decode, each exit 0, verified by stdlib "
+            "gzip")
+
+    # 11e. the repaired kernels against their plain versions: token_hist
+    # on slots over all of int32, rank_emit_src past the reference's
+    # 128-wide search; both on the main path's inputs again; each alone
+    gen = np.random.default_rng(15)
+    shp = tuple(hist_args[0].shape)
+    h_any = [torch.from_numpy(gen.integers(-2**31, 2**31, shp).astype(
+        np.int32)).to(dev) for _ in range(2)]
+    h_any[1] = torch.where(torch.from_numpy(gen.random(shp) < 0.5).to(dev),
+                           0, h_any[1])
+    h_any.append(torch.from_numpy(gen.random(shp) < 0.3).to(dev))
+    rk_hard = rank_hard_cases(dev)
+    rep = {}
+    for what, args in (("int32 slots", h_any), ("main path", hist_args)):
+        rep[f"token_hist {what}"] = max_abs_err(
+            hist.token_hist(*args), hist.token_hist_plain(*args))
+    for what, args in (("past 128 starts", rk_hard), ("main path", rk_args)):
+        rep[f"rank_emit_src {what}"] = max(
+            max_abs_err(x, y) for x, y in zip(rank.rank_emit_src(*args),
+                                              rank.rank_emit_src_plain(*args)))
+    torch.cuda.synchronize()
+    for k in (hist.token_hist, rank.rank_emit_src):
+        e = max(v for key, v in rep.items() if key.startswith(k.__name__))
+        errs[kname(k)] = max(errs[kname(k)], e)
+        row[kname(k)]["max_abs_err"] = errs[kname(k)]
+    alone = {
+        "token_hist int32 slots": lambda: hist.token_hist(*h_any),
+        "token_hist main path": lambda: hist.token_hist(*hist_args),
+        "rank_emit_src past 128 starts": lambda: rank.rank_emit_src(
+            *rk_hard),
+        "rank_emit_src main path": lambda: rank.rank_emit_src(*rk_args)}
+    alone_ms = {k: cuda_ms_many([fn], 48) for k, fn in alone.items()}
+    log(f"repaired kernels vs plain: max_abs_err {rep}; launched 48 times "
+        f"back to back, ms per call (wrapper included): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in alone_ms.items())
+        + f" [{card_line}]")
+    if any(rep.values()):
+        raise AssertionError("a repaired kernel disagrees with its plain "
+                             "version")
+
+    # 11f. host-clock times, median of 3, with the peak device memory
+    log("phase 11 host clock, median of 3, ms (peak device memory above "
+        "the allocation before, MiB): " + "; ".join(
+            f"{k} {ms:.2f} ({peak:.0f})" for k, (ms, peak) in times.items())
+        + f" [{card_line}]")
 
 
 if __name__ == "__main__":

@@ -4,16 +4,24 @@ The JAX package ``libflate_tpu`` is the reference; this package runs the
 PGZF device encode and the device decode (sync-indexed, or speculative
 for shared-table streams without the sync index), and the generic device
 engine under the raw DEFLATE, zlib and gzip containers, on an NVIDIA
-Hopper card (sm_90a).  It imports nothing of ``libflate_tpu``: the host
-pieces it needs (gzip headers, the LF/LS subfields, block-header
-parsing, stored blocks, DEFLATE constants, checksums) are its own
-copies.  The layout mirrors the reference file by file:
+Hopper card (sm_90a), and has the reference's host surface beside it:
+the ``serial`` engine, the streaming façades, the chunked decoders, the
+LZ77 API and the command line.  It imports nothing of ``libflate_tpu``:
+the host pieces it needs are its own copies.  The layout mirrors the
+reference file by file:
 
     formats/pgzf.py          compress, decompress_to_device, decompress
-    formats/gzip.py          gzip members: headers, compress, decompress
-    formats/zlib.py          zlib streams: compress, decompress
-    formats/deflate.py       raw DEFLATE: compress, decompress
-    backend.py               engine registry: "cuda" (default), "cpu"
+    formats/gzip.py          gzip members: headers, one-shots, Encoder,
+                             Decoder, MultiDecoder
+    formats/zlib.py          zlib streams: one-shots, Encoder, Decoder
+    formats/deflate.py       raw DEFLATE: one-shots, BlockStreamer,
+                             Encoder, Decoder
+    backend.py               engine registry: "cuda" (default), "cpu",
+                             "serial"
+    chunked.py               resumable push decoders (host)
+    lz77.py                  public LZ77 API (host)
+    finish.py                Finish, AutoFinish, AutoFinishUnchecked
+    cli.py                   python -m libflate_tpu_torch.cli
     ops/sort_match.py        content-sort LZ77 candidates  csrc/match.cu
     ops/hash_match.py        hash-table LZ77 candidates    csrc/hash.cu
     ops/lcp.py               capped match lengths          csrc/lcp.cu
@@ -34,22 +42,36 @@ copies.  The layout mirrors the reference file by file:
     ops/deflate_decode.py    chunk entries, compaction     csrc/spec_decode.cu
                              inflate_device, decode_symbols csrc/inflate.cu
     ops/checksum.py          CRC f-values (GF(2) matmul), Adler-32
-    serial/deflate.py        EncodeOptions, stored blocks, header parser
+    serial/                  the serial engine: bitio, huffman, lz77,
+                             deflate (also EncodeOptions, stored blocks,
+                             the header parser)
     native/                  host token decode of foreign streams (C++)
     spec/constants.py, utils/checksum.py   format constants, checksums
 
 Every kernel wrapper takes CPU tensors to the kernel's plain PyTorch
 version and CUDA tensors to the kernel; it never falls back from one to
-the other.  The device is explicit everywhere.  Submodules import
-lazily, so ``import libflate_tpu_torch`` imports neither CUDA code nor
-JAX.
+the other.  The device is explicit everywhere.  Submodules and the
+names below import lazily, so ``import libflate_tpu_torch`` imports
+neither CUDA code nor JAX.
 """
 from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("backend", "convert", "formats", "native", "ops", "serial",
-               "spec", "utils")
+_SUBMODULES = ("backend", "chunked", "cli", "convert", "finish", "formats",
+               "lz77", "native", "ops", "serial", "spec", "utils")
+#: public name -> the module that holds it
+_EXPORTS = {
+    "deflate": "formats.deflate", "gzip": "formats.gzip",
+    "zlib": "formats.zlib", "pgzf": "formats.pgzf",
+    **{n: "finish" for n in ("Finish", "AutoFinish", "AutoFinishUnchecked")},
+    **{n: "chunked" for n in ("ChunkedDeflateDecoder", "ChunkedGzipDecoder",
+                              "ChunkedZlibDecoder")},
+    **{n: "lz77" for n in ("Code", "DefaultLz77Encoder",
+                           "DefaultLz77EncoderBuilder",
+                           "NoCompressionLz77Encoder", "Lz77Decoder")},
+}
+__all__ = sorted(set(_SUBMODULES) | set(_EXPORTS))
 
 
 def require_cuda():
@@ -64,4 +86,8 @@ def require_cuda():
 def __getattr__(name: str):
     if name in _SUBMODULES:
         return importlib.import_module(f"{__name__}.{name}")
+    where = _EXPORTS.get(name)
+    if where is not None:
+        mod = importlib.import_module(f"{__name__}.{where}")
+        return mod if where.endswith(name) else getattr(mod, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -31,7 +31,7 @@ _SIGNATURES = {
     "lf_sync_info": "ip",
     "lf_sync_decode_debug": "pqpppppiipiip",
     "lf_sync_debug_info": "ip",
-    "lf_rank_emit_src": "ppppppiiip",
+    "lf_rank_emit_src": "pppppppiiip",
     "lf_rank_info": "p",
     "lf_resolve_bytes": "pppiip",
     "lf_resolve_info": "p",

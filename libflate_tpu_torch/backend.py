@@ -5,17 +5,22 @@ engine's registration, ``libflate_tpu/ops/pipeline.py:891-918``).
 An engine is a set of functions with one contract: ``deflate(data,
 options)`` -> raw DEFLATE bytes, ``inflate(data)`` -> an
 ``InflateResult`` (``data``, ``end_bit``), ``crc32(data, crc=0)`` and
-``adler32(data, adler=1)`` -> int.  Two are registered:
+``adler32(data, adler=1)`` -> int.  Three are registered:
 
 * ``cuda`` (the default): the generic device engine on the card,
   ``ops/pipeline.deflate_device`` and ``ops/deflate_decode.inflate_device``,
   the checksums on the card with host combines;
 * ``cpu``: the same functions on CPU tensors (every kernel's plain
-  version, the glue branches).
+  version, the glue branches);
+* ``serial``: the host codec in plain Python and numpy
+  (``serial/deflate.py``, ``utils/checksum.py``), the reference's
+  ``serial`` engine.
 
-:func:`get` looks for ``native`` and then ``serial`` first, as the
-reference does; neither is ported yet, so ``get(None)`` is ``cuda``,
-which raises RuntimeError where CUDA is not available.
+``get(None)`` and ``get("auto")`` are ``cuda``, which raises
+RuntimeError where CUDA is not available.  This departs from the
+reference, whose ``get(None)`` prefers ``native`` and then ``serial``:
+the port runs on the card unless the caller names another engine, so
+``serial`` runs only when it is named.
 """
 from __future__ import annotations
 
@@ -48,14 +53,10 @@ def register(engine: Engine) -> None:
 
 
 def get(name: str | None = None) -> Engine:
-    """The engine ``name``; None or "auto": ``native``, then ``serial``,
-    then the default (``cuda``).  KeyError for an unknown name,
-    RuntimeError for an engine that is not available here."""
+    """The engine ``name``; None or "auto": the default (``cuda``).
+    KeyError for an unknown name, RuntimeError for an engine that is not
+    available here."""
     if name in (None, "auto"):
-        for candidate in ("native", "serial"):
-            e = _engines.get(candidate)
-            if e is not None and e.available():
-                return e
         name = _default
     e = _engines.get(name)
     if e is None:
@@ -109,3 +110,21 @@ def device_engine(device: str) -> Engine:
 
 register(device_engine("cuda"))
 register(device_engine("cpu"))
+
+
+def serial_engine() -> Engine:
+    """The host codec: ``serial/deflate.py`` and the table-driven
+    checksums of ``utils/checksum.py``."""
+    from .serial import deflate as sd
+    from .utils import checksum as ck
+
+    return Engine(
+        name="serial",
+        deflate=lambda data, opts=None: sd.deflate(bytes(data), opts),
+        inflate=lambda data: sd.inflate(bytes(data)),
+        crc32=lambda data, crc=0: ck.crc32(bytes(data), crc),
+        adler32=lambda data, adler=1: ck.adler32(bytes(data), adler),
+    )
+
+
+register(serial_engine())

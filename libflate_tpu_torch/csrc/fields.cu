@@ -2,14 +2,18 @@
 //
 // lf_token_hist replaces libflate_tpu/ops/pallas_hist.py `_hist_kernel`
 // (via `shared_histograms_pallas`): the batch-global litlen and distance
-// symbol counts of the padded token slots.  Bins: 0..285 litlen (286, 287
-// take literals 286 / 287 and are dropped by the glue), 288 + dist
-// symbol; the glue adds one END_OF_BLOCK per member and the dummy
-// distance code.  A valid slot with b > 0 is a match: length clamped to
-// [3, 258], distance to at most 32768; any other valid slot counts its
-// literal if 0 <= a < 288; invalid slots do not count.  The TPU kernel
-// keeps one bin column per member lane and sweeps compare-selects over 40
-// row groups; nothing of that carries over.
+// symbol counts of the padded token slots, the reference's bins for any
+// int32 a and b.  A valid slot packs w = lo | hi << 9: lo is its literal,
+// or for a match (b > 0) the length symbol by the reference's unclamped
+// int32 arithmetic (length_symbol_arith), hi the match's distance symbol
+// + 1 (dist_symbol_arith).  It counts bin w & 511 when that is below 288
+// and bin 287 + (w >> 9) when w >> 9 lies in [1, 32], as the reference's
+// row-group sweep does.  In DEFLATE's ranges that is bin a for a literal,
+// bins 257..285 and 288 + distance symbol for a match.  Bins 286, 287,
+// 318 and 319 are dropped by the glue, which adds one END_OF_BLOCK per
+// member and the dummy distance code; invalid slots do not count.  The
+// TPU kernel keeps one bin column per member lane and sweeps
+// compare-selects over 40 row groups; nothing of that carries over.
 //
 // What bounds it: bytes.  It must read every valid byte, and a and b
 // only where a slot is valid: at the encode's shape (128 x 49152 slots,
@@ -89,32 +93,36 @@ constexpr int kDistBaseT = kLenExtra + kMaxMatch + 1;
 constexpr int kDistNextra = kDistBaseT + 30;
 constexpr int kTables = kDistNextra + 30;
 
-// RFC-1951 length (3..258) -> litlen symbol 257..285
+// RFC-1951 length (3..258) -> litlen symbol 257..285; any other int32
+// length gets the reference's length_symbol_arith value: length - 3
+// wraps, at most 5 extra bits, no clamp
 __device__ __forceinline__ int length_symbol(int length) {
-  const int l = length - 3;
+  const int l = static_cast<int>(static_cast<uint32_t>(length) - 3u);
   if (length == kMaxMatch) return 285;
   if (l < 8) return 257 + l;
-  const int e = (31 - __clz(l)) - 2;        // extra bits, 1..5
+  const int e = min((31 - __clz(l)) - 2, 5);  // extra bits, 1..5
   return 257 + 4 * e + 4 + ((l >> e) & 3);
 }
 
-// distance (1..32768) -> distance symbol 0..29
+// distance (1..32768) -> distance symbol 0..29; a larger distance gets
+// dist_symbol_arith's value (at most 13 extra bits)
 __device__ __forceinline__ int dist_symbol(int dist) {
   const int d = dist - 1;
   if (d < 4) return d;
-  const int e = (31 - __clz(d)) - 1;        // extra bits, 1..13
+  const int e = min((31 - __clz(d)) - 1, 13);  // extra bits, 1..13
   return 2 * e + 2 + ((d >> e) & 1);
 }
 
 __device__ __forceinline__ void count_slot(int* h, int av, int bv,
                                            bool ok) {
   if (!ok) return;
-  if (bv > 0) {
-    atomicAdd(&h[length_symbol(min(max(av, 3), kMaxMatch))], 1);
-    atomicAdd(&h[kDistBase + dist_symbol(min(bv, kMaxDistance))], 1);
-  } else if (av >= 0 && av < kDistBase) {
-    atomicAdd(&h[av], 1);
-  }
+  const int lo = bv > 0 ? length_symbol(av) : av;
+  const int hi = bv > 0 ? dist_symbol(bv) + 1 : 0;
+  const int lb = lo & 511;
+  const int db = (lo >> 9) | hi;
+  if (lb < kDistBase) atomicAdd(&h[lb], 1);
+  if (db >= 1 && db <= kBins - kDistBase)
+    atomicAdd(&h[kDistBase - 1 + db], 1);
 }
 
 __device__ __forceinline__ void count_four(int* h, const int4& a,

@@ -1,14 +1,23 @@
 """GZIP container (RFC-1952), the port's copy of
 ``libflate_tpu/formats/gzip.py``: member headers (``Header``,
 ``ExtraField``, ``ExtraSubField``, ``HeaderBuilder``, ``Os``), the
-trailer, the level presets (``CompressionLevel``, ``EncodeOptions``) and
+trailer, the level presets (``CompressionLevel``, ``EncodeOptions``),
 the one-shots ``compress``, ``decompress_member``, ``decompress`` and
 ``decompress_members`` on an engine of :mod:`..backend` ("cuda", the
-default, or "cpu"), with the same bytes and the same errors.
+default, "cpu" or "serial"), with the same bytes and the same errors,
+and the streaming ``Encoder``, ``Decoder`` and ``MultiDecoder``.
+
+The ``Encoder`` streams through ``deflate.BlockStreamer`` when the engine
+it resolves is ``serial`` and otherwise buffers the input and hands it
+to that engine at ``finish()``; the CRC-32 of each write runs on the
+resolved engine.  The decoders decode ``bytes`` whole on the engine and
+any file-like source through the host chunked decoder (bounded memory),
+whatever the engine.
 """
 from __future__ import annotations
 
 import enum
+import io
 import struct
 import time
 import zlib
@@ -333,3 +342,161 @@ def decompress_members(data: bytes,
         members.append(m)
         pos = m.end_pos
     return members
+
+
+class Encoder:
+    """Streaming gzip encoder over a file-like or bytes sink.
+
+    On the ``serial`` engine writes stream through deflate.BlockStreamer:
+    completed blocks are emitted as soon as ``block_size`` bytes
+    accumulate, so arbitrarily large inputs encode in O(block_size)
+    memory.  On any other engine the input is buffered and deflated
+    whole at :meth:`finish`.  CRC and ISIZE are tracked per write.
+    """
+
+    def __init__(self, sink=None, options=None, header: Header | None = None,
+                 engine: str | None = None) -> None:
+        self._sink = sink if sink is not None else io.BytesIO()
+        self._engine = engine
+        self._finished = False
+        if options is not None and not isinstance(options, EncodeOptions):
+            deflate_opts = options          # raw serial EncodeOptions
+            self._header = header or Header(mtime=0)
+        else:
+            gz_opts = options or EncodeOptions()
+            deflate_opts = gz_opts.deflate_options
+            self._header = gz_opts.header(header or Header(mtime=0))
+        from .deflate import BlockStreamer, streams
+        if streams(engine):
+            self._streamer = BlockStreamer(deflate_opts)
+        else:
+            # buffer-all: the whole input to that engine's deflate at
+            # finish
+            self._streamer = None
+            self._buf = bytearray()
+            self._deflate_opts = deflate_opts
+        self._crc = 0
+        self._isize = 0
+        self._header_written = False
+
+    def _ensure_header(self) -> None:
+        if not self._header_written:
+            self._header_written = True
+            self._sink.write(self._header.encode())
+
+    def write(self, data: bytes) -> int:
+        if self._finished:
+            raise ValueError("write after finish")
+        self._ensure_header()
+        data = bytes(data)
+        eng = _backend.get(self._engine)
+        self._crc = eng.crc32(data, self._crc)
+        self._isize += len(data)
+        if self._streamer is None:
+            self._buf += data
+        else:
+            out = self._streamer.feed(data)
+            if out:
+                self._sink.write(out)
+        return len(data)
+
+    def finish(self):
+        if not self._finished:
+            self._finished = True
+            self._ensure_header()
+            if self._streamer is None:
+                eng = _backend.get(self._engine)
+                self._sink.write(bytes(eng.deflate(bytes(self._buf),
+                                                   self._deflate_opts)))
+            else:
+                self._sink.write(self._streamer.finish())
+            self._sink.write(Trailer(self._crc, self._isize).encode())
+        return self._sink
+
+    def getvalue(self) -> bytes:
+        self.finish()
+        return self._sink.getvalue()
+
+
+class Decoder:
+    """Streaming single-member gzip decoder (read-style façade).
+
+    Accepts ``bytes`` (decoded whole on the engine) or any binary
+    file-like object, which is pulled CHUNK bytes at a time through the
+    resumable chunked decoder on the host, so arbitrarily large streams
+    decode in bounded memory whatever the engine.
+    """
+
+    CHUNK = 1 << 20
+    _multi = False
+
+    def __init__(self, data, engine: str | None = None) -> None:
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            self._init_bytes(bytes(data), engine)
+        else:
+            from ..chunked import ChunkedGzipDecoder
+            self._src = data
+            self._chunked = ChunkedGzipDecoder(multi=self._multi)
+            self._buf = bytearray()
+            self._src_eof = False
+
+    def _init_bytes(self, data: bytes, engine) -> None:
+        self._chunked = None
+        self._member = decompress_member(data, 0, engine)
+        self._view = memoryview(self._member.data)
+        self._pos = 0
+
+    def _pump(self) -> bool:
+        """Feed one source chunk through the decoder; False at EOF."""
+        if self._src_eof:
+            return False
+        chunk = self._src.read(self.CHUNK)
+        if not chunk:
+            self._src_eof = True
+            self._chunked.finish()
+            return False
+        self._buf += self._chunked.feed(chunk)
+        return True
+
+    @property
+    def header(self) -> Header:
+        if self._chunked is None:
+            return self._member.header
+        while self._chunked.header is None and self._pump():
+            pass
+        if self._chunked.header is None:
+            raise EOFError("gzip stream ended before the header")
+        return self._chunked.header
+
+    def read(self, n: int = -1) -> bytes:
+        if self._chunked is None:
+            if n < 0:
+                n = len(self._view) - self._pos
+            out = bytes(self._view[self._pos:self._pos + n])
+            self._pos += len(out)
+            return out
+        while (n < 0 or len(self._buf) < n) and self._pump():
+            pass
+        if n < 0 or n >= len(self._buf):
+            out = bytes(self._buf)
+            self._buf.clear()
+        else:
+            out = bytes(self._buf[:n])
+            del self._buf[:n]
+        return out
+
+
+class MultiDecoder(Decoder):
+    """Concatenated-member gzip decoder.  Like :class:`Decoder`,
+    file-like inputs decode member by member in bounded memory."""
+
+    _multi = True
+
+    def _init_bytes(self, data: bytes, engine) -> None:
+        self._chunked = None
+        members = decompress_members(data, engine)
+        self._member = members[0]
+        self._members = members
+        joined = b"".join(m.data for m in members)
+        self._view = memoryview(joined)
+        self._pos = 0

@@ -8,7 +8,8 @@ blocks ``ops/pipeline.encode_batch_generic``) and assembles the members
 on the host: bit splice, member CRC, the "LF" member-size and "LS"
 sync-index header subfields, and the stored fallback for incompressible
 members.  ``matcher="none"`` and stored blocks go member by member
-through the gzip container and ``_reheader`` (``:197-206``, ``:233``).
+through the gzip container and ``_reheader`` (``:197-206``, ``:233``),
+as does every member with ``engine="serial"`` (the serial host engine).
 
 Decode: :func:`decompress_to_device` (``:752-825``) with
 ``_prepare_sync_device`` (``:973-1079``), ``_run_sync_chain`` (``:1082``)
@@ -58,7 +59,7 @@ from ..ops.deflate_encode import splice_blocks_host
 from ..ops.device_expand import expand_members
 from ..ops.huffman import decode_table, tables_from_lengths
 from ..ops.pipeline import device_knobs, encode_batch, \
-    encode_batch_generic, use_kernel_branches
+    encode_batch_generic, matcher, use_kernel_branches
 from ..ops.sync_decode import DEBUG_POISON, SYNC_TOKENS, \
     debug_checks, staged_words, stream_words, sync_decode
 from ..serial.deflate import DeflateError, deflate_stored, \
@@ -181,13 +182,47 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _check_member_size(member_size: int) -> None:
-    if (not isinstance(member_size, int) or member_size % 1024
-            or not 1024 <= member_size <= DEFAULT_MEMBER_SIZE):
-        raise ValueError(
-            f"member_size must be a multiple of 1024 up to 65536, got "
-            f"{member_size!r}: other sizes take the reference's XLA LCP, "
-            "which is not ported yet")
+#: the largest member the hash matcher's kernel packs (17-bit positions:
+#: the reference's ``pallas_lz77.py:194``)
+HASH_MAX_MEMBER = 1 << 17
+
+
+def _check_member_size(member_size, route: str) -> None:
+    """ValueError unless the reference's route takes ``member_size``:
+
+    * "members" (stored blocks, ``matcher="none"``): any size >= 1;
+    * "generic" (fixed / auto blocks: the hash candidates of a batch of
+      128): up to 131072 (``pallas_lz77.py:194``);
+    * "dynamic" (the shared-table kernel branch): a multiple of 512 (the
+      parse's 512-position chunks, ``pallas_parse.py:106``); with the
+      sort matcher from 1024 to 65536 once padded to a power of two (a
+      sort of at least 1024 keys, ``pallas_sort.py:292``, positions in
+      16 bits, ``sort_match.py:68``), with the hash matcher up to
+      131072.
+    """
+    if not isinstance(member_size, int) or member_size < 1:
+        raise ValueError(f"member_size must be a positive int, got "
+                         f"{member_size!r}")
+    if route == "members":
+        return
+    if member_size > HASH_MAX_MEMBER:
+        raise ValueError(f"member_size {member_size} exceeds 131072, the "
+                         "hash matcher's 17-bit position packing")
+    if route == "generic":
+        return
+    if member_size % 512:
+        raise ValueError(f"member_size {member_size} is not a multiple of "
+                         "512: the greedy parse works in 512-position "
+                         "chunks")
+    if matcher() == "sort":
+        if member_size <= 512:
+            raise ValueError(f"member_size {member_size}: the sort matcher "
+                             "sorts at least 1024 keys a member")
+        if member_size > 65536:
+            raise ValueError(f"member_size {member_size} exceeds 65536, the "
+                             "sort matcher's 16-bit positions (the hash "
+                             "matcher, LIBFLATE_DEVICE_MATCHER=hash, takes "
+                             "up to 131072)")
 
 
 def _encode_knobs(options) -> dict:
@@ -207,54 +242,75 @@ def _encode_knobs(options) -> dict:
 
 
 def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
-             options=None, device="cuda") -> bytes:
+             options=None, device="cuda", engine: str | None = None) -> bytes:
     """Compress into an indexed multi-member gzip stream.
 
     Byte-identical to the reference's device encode
     (``pgzf.compress(data, member_size, options=options, engine="tpu")``
-    on its TPU kernel branches) for ``member_size`` a multiple of 1024 up
-    to 65536; other sizes raise ValueError.  ``options`` is an
-    ``EncodeOptions`` (the port's or the reference's); its ``block_type``
-    and ``matcher`` choose the route, as in the reference:
+    on its TPU kernel branches) for every ``member_size`` that encode
+    takes; other sizes raise ValueError naming the reason
+    (:func:`_check_member_size`).  ``options`` is an ``EncodeOptions``
+    (the port's or the reference's); its ``block_type`` and ``matcher``
+    choose the route, as in the reference:
 
-    * "dynamic" (the default): the shared-table sync encode.
+    * "dynamic" (the default): the shared-table sync encode, for member
+      sizes that are multiples of 512 (from 1024 to 65536 with the sort
+      matcher, up to 131072 with the hash matcher).
       ``matcher="chain"`` with ``max_chain``, ``lcp_rounds``,
       ``window_size`` (a multiple of 1024 up to 32768), ``lazy`` and
       ``parse_cap`` set the device knobs; ``matcher`` "greedy" and "lazy"
       change nothing.  The candidates come from the sort matcher, or from
-      the hash matcher under ``LIBFLATE_DEVICE_MATCHER=hash``.  Members
-      are encoded in batches of 128 sharing one Huffman code, with the LS
-      sync index; a batch whose parse overflows the chunk budget (384
-      slots, or ``parse_cap``) is encoded again at 512;
+      the hash matcher under ``LIBFLATE_DEVICE_MATCHER=hash``; a size that
+      is not a multiple of 1024 takes the match lengths from the torch
+      glue rounds, without the sort matcher's exact prefix, as the
+      reference's XLA LCP does.  Members are encoded in batches of 128
+      sharing one Huffman code, with the LS sync index; a batch whose
+      parse overflows the chunk budget (384 slots, or ``parse_cap``) is
+      encoded again at 512;
     * "fixed" or "auto": the generic engine's batch encode, 128 members a
       batch, each member one block with its own code (the fixed code, or
       for "auto" whichever of fixed and its own dynamic code is smaller),
-      no LS index; the knobs are not read;
+      no LS index, members up to 131072 bytes; the knobs are not read;
     * ``matcher="none"`` or ``block_type="stored"``: member by member
       through :func:`..formats.gzip.compress` on the device's engine,
-      re-headed with the LF index.
+      re-headed with the LF index; any member size.
+
+    ``engine="serial"`` takes the reference's last route instead, member
+    by member through :func:`..formats.gzip.compress` on the serial host
+    engine, re-headed with the LF index (any member size; ``device`` is
+    not read).
 
     A coded member that is not smaller than stored blocks is written
     stored (no LS index).  Any stock gzip reader decodes the result.
 
     Runs on ``device`` ("cuda" unless the caller asks for "cpu", which
     runs every kernel's plain version).  Raises ValueError for an unknown
-    matcher, ``block_type`` or ``LIBFLATE_DEVICE_MATCHER`` value, or a bad
-    window; RuntimeError for "cuda" without CUDA; DeflateError if a coded
-    field breaks the pack invariant (an internal error).
+    matcher, ``block_type``, ``engine`` or ``LIBFLATE_DEVICE_MATCHER``
+    value, a bad window or member size; RuntimeError for "cuda" without
+    CUDA; DeflateError if a coded field breaks the pack invariant (an
+    internal error).
     """
-    _check_member_size(member_size)
-    dev = _device(device)
     data = bytes(data)
-    matcher = getattr(options, "matcher", "greedy") if options else "greedy"
+    if engine is not None:
+        if engine != "serial":
+            raise ValueError(f"pgzf.compress: engine must be None or "
+                             f"'serial', got {engine!r}")
+        _check_member_size(member_size, "members")
+        return _compress_members(data, member_size, options, "serial")
+    dev = _device(device)
+    matcher_name = (getattr(options, "matcher", "greedy") if options
+                    else "greedy")
     block_type = (getattr(options, "block_type", "dynamic") if options
                   else "dynamic")
-    if matcher == "none" or block_type == "stored":
-        return _compress_members(data, member_size, options, dev)
+    if matcher_name == "none" or block_type == "stored":
+        _check_member_size(member_size, "members")
+        return _compress_members(data, member_size, options, dev.type)
     if block_type in ("fixed", "auto"):
+        _check_member_size(member_size, "generic")
         return _compress_generic(data, member_size, block_type, dev)
     if block_type != "dynamic":
         raise ValueError(f"unknown block_type {block_type!r}")
+    _check_member_size(member_size, "dynamic")
     knobs = _encode_knobs(options)
     raw = np.frombuffer(data, np.uint8)
     n_members = max(1, -(-len(raw) // member_size))
@@ -354,15 +410,15 @@ def _compress_generic(data: bytes, member_size: int, block_type: str,
 
 
 def _compress_members(data: bytes, member_size: int, options,
-                      device) -> bytes:
-    """Member by member through the gzip container on the device's
-    engine, each re-headed with the LF index (``matcher="none"`` and
-    stored blocks: the reference's route when its device encode refuses
-    them)."""
+                      engine: str) -> bytes:
+    """Member by member through the gzip container on ``engine``, each
+    re-headed with the LF index (``matcher="none"`` and stored blocks on
+    the device's engine, and every member on ``serial``: the reference's
+    route when its device encode refuses them)."""
     out = bytearray()
     for i in range(0, max(len(data), 1), member_size):
         plain = fgzip.compress(data[i:i + member_size], options=options,
-                               engine=device.type)
+                               engine=engine)
         member = bytearray(_member_header(0) + plain[10:])
         struct.pack_into("<I", member, _SIZE_OFFSET, len(member))
         out += member
@@ -762,7 +818,8 @@ def _spec_token_groups(data: bytes, refs: list[MemberRef], device):
         yield packed, nt, st["group"], st["out_cap"]
 
 
-def decompress(data: bytes, verify: bool = True, device="cuda") -> bytes:
+def decompress(data: bytes, verify: bool = True, device="cuda",
+               engine: str | None = None) -> bytes:
     """Decompress a gzip stream on ``device`` and return its plaintext.
 
     The counterpart of the reference's ``decompress`` on its device
@@ -788,14 +845,23 @@ def decompress(data: bytes, verify: bool = True, device="cuda") -> bytes:
     runs the kernel's debug-checks form and raises DeflateError if a
     chunk's cursor left the window the reference would have staged.
 
+    ``engine="serial"`` takes the reference's route for a host engine
+    instead: :func:`..formats.gzip.decompress` with ``multi=True`` on the
+    serial engine, every CRC verified (``device`` is not read).
+
     Raises DeflateError for a malformed or corrupt member (an invalid
     Huffman code, a bad back-reference), GzipError for a CRC or size
     mismatch or a truncated trailer, EOFError for a stream cut inside a
-    body, ValueError for an empty stream, and RuntimeError for
-    ``device="cuda"`` without CUDA.
+    body, ValueError for an empty stream or an ``engine`` other than None
+    and "serial", and RuntimeError for ``device="cuda"`` without CUDA.
     """
-    dev = _device(device)
     data = bytes(data)
+    if engine is not None:
+        if engine != "serial":
+            raise ValueError(f"pgzf.decompress: engine must be None or "
+                             f"'serial', got {engine!r}")
+        return fgzip.decompress(data, engine="serial", multi=True)
+    dev = _device(device)
     refs = index_members(data)
     if refs is not None:
         if not os.environ.get("LIBFLATE_NO_SYNC"):

@@ -4,11 +4,17 @@ and its ``_hist_kernel``).
 
 The shared-table encode needs only the litlen and distance symbol counts
 summed over the whole batch.  :func:`token_hist` (``csrc/fields.cu``)
-counts the padded token slots into 320 bins — 0..285 litlen, 288 + dist
-symbol — in one launch, and :func:`shared_histograms` adds one
-END_OF_BLOCK per member (padding members included) and the dummy distance
-code of a batch without any match.  :func:`kernel_info` gives how the
-kernel compiled.
+counts the padded token slots into 320 bins in one launch, and
+:func:`shared_histograms` adds one END_OF_BLOCK per member (padding
+members included) and the dummy distance code of a batch without any
+match.  :func:`kernel_info` gives how the kernel compiled.
+
+The bins are the reference's for any int32 ``a`` and ``b``: a valid slot
+packs ``lo | hi << 9`` with ``lo`` its literal (or the unclamped length
+symbol of a match, ``b > 0``) and ``hi`` a match's distance symbol + 1,
+and the word counts bin ``word & 511`` when that is below 288 and bin
+``287 + (word >> 9)`` when ``word >> 9`` lies in [1, 32].  Invalid slots
+count nowhere (the reference puts them in its dead bin 287).
 """
 from __future__ import annotations
 
@@ -51,27 +57,43 @@ def kernel_state() -> torch.Tensor:
 
 
 def length_symbol(length: torch.Tensor) -> torch.Tensor:
-    """RFC-1951 length (3..258) -> litlen symbol (257..285)."""
-    lv = length - 3
-    e = sum((lv >= t).to(lv.dtype) for t in (8, 16, 32, 64, 128))
+    """RFC-1951 length (3..258) -> litlen symbol (257..285); any other
+    int32 length gets the reference's ``length_symbol_arith`` value
+    (int32 arithmetic, no clamp)."""
+    lv = wrap32(length.to(torch.int64) - 3)
+    e = sum((lv >= t).to(torch.int64) for t in (8, 16, 32, 64, 128))
     idx = torch.where(lv < 8, lv, 4 * e + 4 + ((lv >> e) & 3))
-    return torch.where(length == C.MAX_MATCH, 285, 257 + idx)
+    return torch.where(length == C.MAX_MATCH, 285, 257 + idx).to(
+        length.dtype)
 
 
 def dist_symbol(dist: torch.Tensor) -> torch.Tensor:
-    """Distance (1..32768) -> distance symbol (0..29)."""
+    """Distance (1..32768) -> distance symbol (0..29); a larger distance
+    gets the reference's ``dist_symbol_arith`` value (13 extra bits at
+    most, so 28 or 29)."""
     d = dist - 1
     e = sum((d >= (1 << k)).to(d.dtype) for k in range(2, 15))
     return torch.where(d < 4, d, 2 * e + 2 + ((d >> e) & 1))
 
 
+def wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values cut to int32 two's complement, kept as int64."""
+    return ((x + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
+
+
 def token_hist_plain(a, b, valid) -> torch.Tensor:
-    """Plain PyTorch version of the histogram kernel."""
-    is_match = (b > 0) & valid
-    lit = torch.where(is_match, length_symbol(a.clamp(3, C.MAX_MATCH)), a)
-    lit = lit[valid & (is_match | ((a >= 0) & (a < DIST_BIN0)))]
-    dist = DIST_BIN0 + dist_symbol(b[is_match].clamp(max=C.MAX_DISTANCE))
-    sym = torch.cat([lit.reshape(-1), dist]).to(torch.int64)
+    """Plain PyTorch version of the histogram kernel: the reference's
+    packing ``lo | hi << 9`` and its bin decode, on the valid slots."""
+    a = a[valid].to(torch.int64)
+    b = b[valid].to(torch.int64)
+    is_match = b > 0
+    lo = torch.where(is_match, length_symbol(a), a)
+    hi = torch.where(is_match, dist_symbol(b.clamp(min=1)) + 1, 0)
+    lit = lo & 511
+    dist = (lo >> 9) | hi
+    sym = torch.cat([lit[lit < DIST_BIN0],
+                     dist[(dist >= 1) & (dist <= BINS - DIST_BIN0)]
+                     + DIST_BIN0 - 1])
     return torch.bincount(sym, minlength=BINS).to(torch.int32)
 
 

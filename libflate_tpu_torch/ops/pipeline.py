@@ -136,14 +136,27 @@ def lengths_stage(blocks, n_valid, cand, m4=None, *, lazy: bool = True,
     ``min(window, 8192)``.  Chain level k gathers the candidate of the
     current best candidate and replaces it where its LCP (no ``m4``, the
     full window) is strictly longer, so ties keep the nearer one.
+
+    Rows of a width that is not a multiple of 1024 take the reference's
+    XLA branch instead (``use_kernel = n % 1024 == 0``,
+    ``libflate_tpu/ops/pipeline.py:262``): ``m4`` is dropped and every
+    LCP is the torch glue's :func:`.lz77.match_lengths`, ``lcp_rounds``
+    rounds (6 by default) over the whole row.
     """
     bsz, n = blocks.shape
     dev = blocks.device
     idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
     nv = n_valid.to(torch.int32)[:, None]
     cand = torch.where(idx < nv, cand, -1)
+    use_kernel = n % 1024 == 0
+    if not use_kernel:
+        m4 = None
 
     def lcp(c, m4_=None):
+        if not use_kernel:
+            return lz77.match_lengths(
+                blocks, c, max_rounds=(lcp_rounds if lcp_rounds is not None
+                                       else KERNEL_LCP_ROUNDS))
         first = M_EXACT // 4 if m4_ is not None else 0
         rounds = (lcp_rounds if lcp_rounds is not None
                   else first if m4_ is not None else KERNEL_LCP_ROUNDS)

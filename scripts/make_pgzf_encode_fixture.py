@@ -49,13 +49,42 @@ the interpreted bitonic sort's compile grows steeply with the member
 size).  The chain-8 and hash small streams 105 s and 40 s, the 8 KiB
 chain-8 stream 495 s.
 
+Member sizes that are not a multiple of 1024 (``--odd``, each stream
+in a child process under ``--limit``): the reference's kernel branch
+takes every multiple of 512 whose sort pads to at most 65536 positions
+(its LCP then runs in XLA, without the sort's exact prefix), and with
+the hash matcher every multiple of 512 up to 131072.  It refuses 1000
+(``pallas_parse.py:106``, positions % 512), 512 with the sort matcher
+(``pallas_sort.py:292``, a sort of fewer than 1024 keys) and 131072 with
+the sort matcher (``sort_match.py:68``, more than 65536 positions).  The
+odd-size streams encode ``small_corpus()`` with the hash matcher: the
+interpreted sort at 2048 keys did not finish (the 1536-byte stream ran
+past 60 min on 8 cores, a 4 x 1536 ``sort_candidates`` alone past 15):
+
+* ``tests/data/pgzf_encode_odd_1536_hash.pgz`` — 1536-byte members:
+  71,381 bytes, sha256
+  ``423095587dbd01da056fa7d7a441a21f1fdfc47bd791a22bbe279f28d06e2e85``;
+* ``tests/data/pgzf_encode_odd_512_hash.pgz`` — 512-byte members: 91,887
+  bytes, sha256
+  ``2b97d7643c5191d5ba617cc52ab6c49a30c8e35177fc9ac894191cda9ef1fa88``;
+* ``tests/data/pgzf_encode_odd_65024_hash.pgz`` — 65024-byte members
+  (127 x 512): 50,347 bytes, sha256
+  ``6b1c09bd978da97744c60b788261991a689644ff7d41b755555005b26ae45c0e``;
+* ``tests/data/pgzf_encode_odd_131072_hash.pgz`` — 131072-byte members:
+  49,614 bytes, sha256
+  ``97fba50f07d68c40900a451ca16ce8c64156d51297bcbc3e17478a73be4da65c``.
+
+They took 83-117 s, 83-113 s, 247 s and 687 s here (8 cores, other
+jobs running).
+
 Run from the repository root (``--big`` also writes the large stream,
 trying member sizes 65536, 16384, 8192, 4096 in turn under ``--limit``
 seconds each; ``--chain-8k`` the 8 KiB chain-8 stream under
 ``--limit``)::
 
     JAX_PLATFORMS=cpu python scripts/make_pgzf_encode_fixture.py \
-        [small] [chain8_small] [hash_small] [--chain-8k] [--big]
+        [small] [chain8_small] [hash_small] [--chain-8k] [--big] \
+        [--odd [SIZE_MATCHER ...]]
 """
 from __future__ import annotations
 
@@ -92,6 +121,7 @@ def big_corpus() -> bytes:
 def _kernel_path(matcher: str = "sort") -> None:
     """Make this process take the reference's TPU kernel branches, with
     the sort or the hash matcher."""
+    sys.path.insert(0, str(ROOT))
     os.environ["LIBFLATE_PALLAS_INTERPRET"] = "1"
     os.environ["LIBFLATE_DEVICE_MATCHER"] = matcher
     import functools
@@ -157,6 +187,45 @@ CHAIN8_8K = (DATA / "pgzf_encode_chain8_w2048_8k.pgz", 8192,
              {**CHAIN8, "window_size": 2048})
 
 
+#: odd member sizes: name -> (member size, matcher); ``--odd`` writes
+#: tests/data/pgzf_encode_odd_<name>.pgz for each
+ODD = {"1536_hash": (1536, "hash"), "512_hash": (512, "hash"),
+       "65024_hash": (65024, "hash"), "131072_hash": (131072, "hash")}
+#: sizes the kernel branch refuses, with the matcher: --odd shows each
+#: refusal (an assertion raised while the reference traces)
+ODD_REFUSED = ((1000, "sort"), (512, "sort"), (131072, "sort"))
+
+
+def odd_path(name: str) -> pathlib.Path:
+    return DATA / f"pgzf_encode_odd_{name}.pgz"
+
+
+def _odd_child(name: str, out: str) -> None:
+    member, matcher = ODD[name]
+    pathlib.Path(out).write_bytes(encode(small_corpus(), member,
+                                         matcher=matcher))
+
+
+def _refusal(member: int, matcher: str) -> str:
+    """The reference's refusal of ``member`` with ``matcher``: the
+    assertion its parse or candidate stage raises while it traces, or
+    "taken" (nothing runs: ``jax.eval_shape``)."""
+    import jax
+    import jax.numpy as jnp
+    _kernel_path(matcher)
+    from libflate_tpu.ops.pallas_lz77 import prefix_candidates_pallas
+    from libflate_tpu.ops.pallas_parse import parse_chunk_exits
+    from libflate_tpu.ops.sort_match import sort_candidates
+    cand = sort_candidates if matcher == "sort" else prefix_candidates_pallas
+    try:
+        jax.eval_shape(parse_chunk_exits,
+                       jax.ShapeDtypeStruct((member, 128), jnp.int32))
+        jax.eval_shape(cand, jax.ShapeDtypeStruct((128, member), jnp.uint8))
+    except AssertionError as e:
+        return f"AssertionError: {e}"
+    return "taken"
+
+
 def _write(path: pathlib.Path, stream: bytes, seconds: float) -> None:
     path.write_bytes(stream)
     print(f"{path.relative_to(ROOT)}: {len(stream)} bytes in "
@@ -196,9 +265,28 @@ def _run_limited(path: pathlib.Path, members, options, limit: float) -> bool:
     return False
 
 
+def _run_odd(name: str, limit: float) -> None:
+    path = odd_path(name)
+    tmp = path.with_suffix(".tmp")
+    t = time.perf_counter()
+    proc = mp.get_context("spawn").Process(target=_odd_child,
+                                           args=(name, str(tmp)))
+    proc.start()
+    proc.join(limit)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        print(f"{path.name}: not done in {limit:.0f} s", flush=True)
+    elif proc.exitcode == 0:
+        _write(path, tmp.read_bytes(), time.perf_counter() - t)
+        tmp.unlink()
+    else:
+        print(f"{path.name}: exit {proc.exitcode}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("names", nargs="*", default=["small"],
+    ap.add_argument("names", nargs="*", default=None,
                     choices=sorted(STREAMS),
                     help="small streams to write (default: small)")
     ap.add_argument("--big", action="store_true",
@@ -206,9 +294,18 @@ def main() -> None:
     ap.add_argument("--chain-8k", action="store_true",
                     help="also one batch of 8 KiB members in chain-8 "
                     "quality mode with window_size=2048")
+    ap.add_argument("--odd", nargs="*", choices=sorted(ODD),
+                    help="odd member sizes (default: all), each under "
+                    "--limit, after showing the refused ones")
     ap.add_argument("--limit", type=float, default=1200.0)
     args = ap.parse_args()
-    for name in args.names:
+    if args.odd is not None:
+        for member, matcher in ODD_REFUSED:
+            print(f"member_size {member}, {matcher}: "
+                  f"{_refusal(member, matcher)}", flush=True)
+        for name in args.odd or sorted(ODD):
+            _run_odd(name, args.limit)
+    for name in args.names or (["small"] if args.odd is None else []):
         path, corpus, member, options, matcher = STREAMS[name]
         t = time.perf_counter()
         _write(path, encode(corpus(), member, options, matcher),

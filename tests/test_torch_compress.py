@@ -93,9 +93,12 @@ def test_empty_input_is_one_stored_member():
     assert len(pgzf.index_members(stream)) == 1
 
 
-@pytest.mark.parametrize("size", [0, 1000, 1536, 3 * 1024 + 1, 2 ** 17,
+@pytest.mark.parametrize("size", [0, 1000, 512, 3 * 1024 + 1, 2 ** 17,
                                   "1024"])
 def test_bad_member_size_raises(size):
+    """Sizes the reference's dynamic branch refuses with the sort matcher:
+    not a positive int, not a multiple of 512, a sort of fewer than 1024
+    keys, more than 65536 positions."""
     with pytest.raises(ValueError, match="member_size"):
         pgzf.compress(b"abc", member_size=size, device="cpu")
 

@@ -232,6 +232,29 @@ def test_rank_kernel_hard_cases_match_plain(dev, out_cap):
         _eq(got, want)
 
 
+@pytest.mark.parametrize("out_cap", [2048, 3 * 4096 + 100, 16384])
+def test_rank_kernel_past_128_starts_matches_plain(dev, out_cap):
+    """Inputs past the reference's 128-wide search, where both versions
+    follow its bounded search: 124 and 300 zero-length matches in one
+    row, 2,000 past the 2048-slot window, no token covering the first
+    positions, and the same members moved into later tiles."""
+    base = chip_smoke.rank_hard_cases(dev)
+    cases = [base] if out_cap == 2048 else []
+    if out_cap != 2048:
+        members = [[97] * (out_cap // 3) + [_match(0, 2)] * 300
+                   + [_match(258, 1)],
+                   [98] * 4095 + [_match(0, 1)] * 1500 + [99] * 50,
+                   [_match(0, 3)] * 129 + [100] * 10]
+        cases.append(_rank_args(dev, members, out_cap))
+        shifted = _rank_args(dev, members, out_cap)
+        shifted[0] = (shifted[0] + 7).clamp(max=out_cap - 1)
+        cases.append(shifted)
+    for args in cases:
+        for got, want in zip(rank.rank_emit_src(*args),
+                             rank.rank_emit_src_plain(*args)):
+            _eq(got, want)
+
+
 def test_rank_kernel_n_out_mid_tile_matches_plain(dev):
     """Tiles that are part live, part padding, wholly padding, and
     n_out outside [0, out_cap]."""
@@ -289,16 +312,16 @@ def test_rank_kernel_extreme_starts_match_plain(dev):
 
 
 def test_rank_and_pack_kernel_info(dev):
-    """Both kernels compile without spills, fit on an SM with static
-    shared memory only, and report the geometry they were built with: a
-    rank tile of whole 4-position runs over whole warps, one pack chunk a
-    warp."""
+    """Both kernels (and the rank's reference-search kernel) compile
+    without spills, fit on an SM with static shared memory only, and
+    report the geometry they were built with: a rank tile of whole
+    4-position runs over whole warps, one pack chunk a warp."""
     rk, pc = rank.kernel_info(), pack.kernel_info()
     for info in (rk, pc):
         assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1
         assert 0 < info["static_smem"] <= 48 * 1024
         assert info["dynamic_smem"] == 0 and info["threads"] % 32 == 0
-    assert rk["tile"] % (4 * rk["threads"]) == 0
+    assert rk["tile"] % (4 * rk["threads"]) == 0 and rk["ref_spill_bytes"] == 0
     assert pc["threads"] == 32 * pc["chunks_per_block"]
 
 
@@ -736,6 +759,20 @@ def test_hist_kernel_hard_cases_match_plain(dev, kind, n):
     _eq(hist.token_hist(a, b, valid), first)
     if kind == "invalid":
         assert int(first.sum()) == 0
+
+
+@pytest.mark.parametrize("n", [5, 4097, 128 * 49152 + 3])
+def test_hist_kernel_any_int32_matches_plain(dev, n):
+    """Slots over all of int32, 30% valid: the reference's packing and
+    bin decode (no clamp) in both versions."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    a, b = (torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(2))
+    b = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, 0, b)
+    valid = torch.rand(n, generator=g, device=dev) < 0.3
+    first = hist.token_hist(a, b, valid)
+    _eq(first, hist.token_hist_plain(a, b, valid))
+    _eq(hist.token_hist(a, b, valid), first)
 
 
 @pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 2, 0), (0, 0, 3),
@@ -1805,3 +1842,20 @@ def test_decompress_repaired_faults_on_cuda(dev):
     with pytest.raises(EOFError):
         pgzf.decompress(gzip.compress(bytes(range(256)) * 300)[:12],
                         device="cuda")
+
+
+@pytest.mark.parametrize("name,member,matcher", [
+    ("65024_hash", 65024, "hash"), ("131072_hash", 131072, "hash"),
+    ("1536_hash", 1536, "hash")])
+def test_odd_member_size_end_to_end(dev, name, member, matcher,
+                                    monkeypatch):
+    """pgzf at member sizes that are not a multiple of 1024, byte-identical
+    to the reference streams; read back by ``decompress`` on the card,
+    the encode's kernels launched."""
+    monkeypatch.setenv("LIBFLATE_DEVICE_MATCHER", matcher)
+    ref = (DATA / f"pgzf_encode_odd_{name}.pgz").read_bytes()
+    plain = gzip.decompress(ref)
+    hist.token_hist.launches = fields.token_fields.launches = 0
+    assert pgzf.compress(plain, member_size=member, device="cuda") == ref
+    assert hist.token_hist.launches >= 1 and fields.token_fields.launches >= 1
+    assert pgzf.decompress(ref, device="cuda") == plain

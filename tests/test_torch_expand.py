@@ -7,6 +7,8 @@ seven members at out_cap 2048; the port's plain versions must give
 identical arrays.  Tokens come from the JAX-free serial greedy tokenizer
 on seeded corpora.
 """
+import bisect
+
 import numpy as np
 import pytest
 import torch
@@ -129,26 +131,85 @@ def test_rank_emit_src_plain_matches_reference_on_hard_cases(edge_ref):
         np.testing.assert_array_equal(got.numpy(), w)
 
 
-def _rank_oracle(starts, pk, valid, n_out, out_cap):
-    """(src, lit) one position at a time: a cursor walks the valid
-    tokens in order and stays on the last one whose start is <= p."""
+@pytest.fixture(scope="module")
+def bucket_ref(interpret):
+    """One reference ``rank_emit_src`` call on ``chip_smoke.
+    rank_hard_cases``: rows that hold more than 128 token starts (124,
+    300 and 2,000 zero-length matches, the last past the vreg's 2048-slot
+    window) and a first token moved 5 positions on."""
+    import chip_smoke
+    from libflate_tpu.ops.pallas_rank import rank_emit_src
+
+    *args, out_cap = chip_smoke.rank_hard_cases(torch.device("cpu"))
+    assert out_cap == OUT_CAP
+    want = tuple(np.array(a) for a in rank_emit_src(
+        *(jnp.asarray(a.numpy()) for a in args), OUT_CAP))
+    return args, want
+
+
+def test_rank_emit_src_plain_matches_reference_past_128_starts(bucket_ref):
+    args, want = bucket_ref
+    got = port_rank.rank_emit_src(*args, OUT_CAP)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    # the search's bound shows: a plain covering rank differs
+    assert not np.array_equal(want[0], np.asarray(
+        _rank_oracle(*args, OUT_CAP, covering=True)[0]))
+
+
+def _ref_slot(st, p):
+    """The slot ``pallas_rank._rank_one`` reads for position p, one
+    position at a time: row r = p // 128 counts at most 128 of the
+    starts from C = #{starts < 128 r} on (whole 16-slot blocks, then a
+    binary search in the block) inside its vreg's 2048-slot window, and
+    reads the slot from the row of lane 0's id or the next one.  ``st``
+    holds the sentinel starts (sorted: a valid prefix), padded past the
+    window."""
+    r, v = p // 128, p // 1024
+    c = bisect.bisect_left(st, 128 * r)
+    base = max(bisect.bisect_left(st, 1024 * v) - 1, 0) // 1024 * 1024
+
+    def window(k):
+        f = c - base + k
+        return st[base + min(f // 128, 15) * 128 + f % 128]
+
+    def local_id(q):
+        fh = sum(1 for m in range(8) if window(16 * m + 15) <= q)
+        off = 0
+        for step in (8, 4, 2, 1):
+            if window(min(16 * fh + off + step - 1, 127)) <= q:
+                off += step
+        return c - base - 1 + (128 if fh == 8 else 16 * fh + off)
+
+    li, qa = local_id(p), local_id(128 * r) >> 7
+    row = min(max(qa if li >> 7 == qa else qa + 1, 0), 15)
+    return base + row * 128 + (li & 127)
+
+
+def _rank_oracle(starts, pk, valid, n_out, out_cap, covering=False):
+    """(src, lit) one position at a time, each from the slot
+    :func:`_ref_slot` picks: the last valid token whose start is <= p
+    wherever no 128-position row holds more than 128 starts.  With
+    ``covering``, that token everywhere (slot 0 where there is none)."""
     starts, pk, valid, n_out = (np.asarray(x, np.int64)
                                 for x in (starts, pk, valid, n_out))
-    bsz = starts.shape[0]
+    bsz, t = starts.shape
     src = np.zeros((bsz, out_cap), np.int64)
     lit = np.zeros((bsz, out_cap), np.int64)
     for b in range(bsz):
-        nv = int(valid[b].sum())
-        i = 0
+        st = [int(s) if ok else out_cap + 2
+              for s, ok in zip(starts[b], valid[b])] + [out_cap + 2] * 4096
+        tk = [int(x) for x in pk[b]] + [0] * 4096
         for p in range(out_cap):
-            while i + 1 < nv and starts[b, i + 1] <= p:
-                i += 1
-            s = int(starts[b, i]) if nv else out_cap + 2
-            d = (int(pk[b, i]) >> 9) & 0xFFFF
+            if covering:
+                i = max(bisect.bisect_right(st[:t], p) - 1, 0)
+            else:
+                i = _ref_slot(st, p) if p < n_out[b] else 0
+            s, d = st[i], (tk[i] >> 9) & 0xFFFF
             if p >= n_out[b]:
                 src[b, p] = p
             elif d == 0:
-                src[b, p], lit[b, p] = p, int(pk[b, i]) & 255
+                src[b, p], lit[b, p] = p, tk[i] & 255
             else:
                 src[b, p] = min(max((p - s) % d + s - d, 0), out_cap - 1)
     return src, lit
@@ -158,6 +219,8 @@ _ORACLE_CASES = {
     "clipped_overflow": ([[ord("x")] + [_m(258, 1)] * 30], 1000, None),
     "zero_length_past_a_bucket": (
         [[97, 98, 99] + [_m(0, 2)] * 300 + [122, _m(258, 1)]], 1024, None),
+    "zero_length_past_the_window": (
+        [[97] + [_m(0, 1)] * 2500 + [_m(9, 1)] * 300], 3072, None),
     "no_tokens": ([[], [ord("z")]], 1024, None),
     "n_out_mid_row": ([[ord("a")] + [_m(258, 1)] * 20] * 3, 4097,
                       [0, 1234, 4097]),
@@ -171,9 +234,10 @@ _ORACLE_CASES = {
 
 @pytest.mark.parametrize("case", sorted(_ORACLE_CASES))
 def test_rank_emit_src_plain_matches_a_position_walk(case):
-    """The plain rank against a position-by-position walk of the tokens,
-    on inputs the reference cannot take (more than 128 starts in one
-    bucket) or that the kernel's tiles split."""
+    """The plain rank against a position-by-position rendering of the
+    reference's search, on inputs past its 128-wide bound (more than 128
+    starts in one row, more than its window holds) or that the kernel's
+    tiles split."""
     members, out_cap, n_out = _ORACLE_CASES[case]
     t_cap = max(len(m) for m in members) + 5
     packed = np.zeros((len(members), t_cap), np.int32)

@@ -48,12 +48,11 @@ def _tokens(seed: int, matches: bool = True):
 
 
 def _out_of_range(seed: int):
-    """``_tokens`` plus slots outside the encoder's range on which the
-    reference and the port agree: invalid slots carrying any a and b,
-    literals in [288, 512) and [-224, 0) (neither counts them), and
-    negative b (a literal).  Valid matches with a outside [3, 258] or b
-    above 32768, and literals outside [-224, 512), differ: see
-    ``test_token_hist_clamps_what_the_encoder_never_emits``."""
+    """``_tokens`` plus slots outside the encoder's range: invalid slots
+    carrying any a and b, literals in [288, 512) and [-224, 0), and
+    negative b (a literal).  Valid matches with any a and b, and
+    literals anywhere in int32, are
+    ``test_token_hist_clamps_what_the_encoder_never_emits``'s."""
     a, b, valid = _tokens(seed)
     rng = np.random.default_rng(seed)
     junk = rng.random((B, M)) < 0.1
@@ -65,6 +64,49 @@ def _out_of_range(seed: int):
     a[lit] = rng.choice([288, 300, 511, -1, -100, -224], int(lit.sum()))
     b[lit] = rng.choice([0, -1, -40000], int(lit.sum()))
     return a, b, valid
+
+
+def _any_int32(seed: int):
+    """(128, 2048) slots with a and b anywhere in int32, 30% valid, and
+    the corners of the length and distance arithmetic."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-2**31, 2**31, (B, M))
+    b = np.where(rng.random((B, M)) < 0.5, 0,
+                 rng.integers(-2**31, 2**31, (B, M)))
+    a[:, 1::7] = rng.integers(-700, 700, (B, len(range(1, M, 7))))
+    b[:, 2::7] = rng.integers(32000, 70000, (B, len(range(2, M, 7))))
+    corners = [-2**31, -2**31 + 2, 2**31 - 1, 0, 2, 3, 258, 259, 600,
+               511, 512, 1023, 131 + 512]
+    a[0, :len(corners)] = corners
+    b[0, :len(corners)] = [1, 5, 2**31 - 1, 32769, 40000, 65536, 1, 2,
+                           5, 0, 0, 0, 0]
+    valid = rng.random((B, M)) < 0.3
+    valid[0, :len(corners)] = True
+    return a.astype(np.int32), b.astype(np.int32), valid
+
+
+def _padded(a, b):
+    """One member of slots, padded to the reference kernel's 128 lanes
+    with empty members."""
+    n = len(a)
+    out = [np.zeros((B, n), np.int32), np.zeros((B, n), np.int32),
+           np.zeros((B, n), bool)]
+    out[0][0], out[1][0], out[2][0] = a, b, True
+    return tuple(out)
+
+
+@pytest.fixture(scope="module")
+def ref_hist_any():
+    """``shared_histograms_pallas`` (interpret mode) on the seven slots
+    of the Queue 3 entry and on ``_any_int32`` slots."""
+    cases = [_padded([600, 1, -5, 10, 600, -300, 7],
+                     [5, 5, 9, 40000, 0, 0, -3]), _any_int32(6)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LIBFLATE_PALLAS_INTERPRET", "1")
+        from libflate_tpu.ops.pallas_hist import shared_histograms_pallas
+        out = [tuple(map(np.asarray, shared_histograms_pallas(
+            *(jnp.asarray(x) for x in case)))) for case in cases]
+    return cases, out
 
 
 @pytest.fixture(scope="module")
@@ -90,20 +132,21 @@ def test_shared_histograms_match_reference(ref_hist, which):
         assert dist.tolist() == [1] + [0] * 29
 
 
-def test_token_hist_clamps_what_the_encoder_never_emits():
-    """A valid match clamps its length to [3, 258] and its distance to
-    32768; a literal outside [0, 288) does not count.  The reference
-    (``shared_histograms_pallas``) runs its arithmetic off the tables
-    there instead (length 600 -> symbol 283, distance 40000 -> 28,
-    literal 600 -> bin 88), for inputs no encoder path produces."""
-    a = torch.tensor([600, 1, -5, 10, 600, -300, 7], dtype=torch.int32)
-    b = torch.tensor([5, 5, 9, 40000, 0, 0, -3], dtype=torch.int32)
-    bins = hist.token_hist(a, b, torch.ones(7, dtype=torch.bool))
-    want = torch.zeros(hist.BINS, dtype=torch.int32)
-    for sym in (285, 4 + 288, 257, 4 + 288, 257, 6 + 288, 264, 29 + 288,
-                7):
-        want[sym] += 1
-    torch.testing.assert_close(bins, want, rtol=0, atol=0)
+def test_token_hist_clamps_what_the_encoder_never_emits(ref_hist_any):
+    """Slots the encoder never emits (valid matches with any length and
+    distance, literals anywhere in int32) count where the reference's
+    packing puts them; the port clamps nothing.  The seven slots: length
+    600 -> symbol 283, distance 40000 -> 28, literal 600 -> bin 88 and
+    distance bin 0 (600 >> 9 == 1), -5 and -300 in no bin."""
+    cases, out = ref_hist_any
+    for (a, b, valid), (want_lit, want_dist) in zip(cases, out):
+        ta, tb, tv = (torch.from_numpy(x) for x in (a, b, valid))
+        lit, dist = hist.shared_histograms(ta, tb, tv)
+        np.testing.assert_array_equal(lit.numpy(), want_lit)
+        np.testing.assert_array_equal(dist.numpy(), want_dist)
+    bins = hist.token_hist(*(torch.from_numpy(x[0]) for x in cases[0]))
+    assert bins[283] == 1 and bins[88] == 1 and bins[288 + 28] == 1
+    assert bins[288] == 1                       # from the literal 600
 
 
 def test_symbol_arithmetic_matches_the_tables():

@@ -217,6 +217,35 @@ for opts in (EncodeOptions(block_type="fixed"), EncodeOptions(matcher="none"),
                                          device="cpu")) == data
 big = gzip.compress(rnd * 400, compresslevel=0)
 assert pgzf.decompress(big, device="cpu") == rnd * 400
+# the serial engine, the streaming facades, chunked, lz77 and the CLI
+import io, tempfile
+from libflate_tpu_torch import chunked, cli, finish, lz77
+from libflate_tpu_torch.serial import deflate as sdeflate
+assert bytes(sdeflate.inflate(sdeflate.deflate(data)).data) == data
+enc = fgzip.Encoder(engine="cpu")
+for i in range(0, len(data), 1000):
+    enc.write(data[i:i + 1000])
+one = enc.getvalue()
+assert one == fgzip.compress(data, engine="cpu")
+assert fgzip.Decoder(one, engine="cpu").read() == data
+assert fgzip.MultiDecoder(io.BytesIO(one + one)).read() == data * 2
+zenc = fzlib.Encoder(engine="serial", flush_mode=fzlib.FlushMode.SYNC)
+zenc.write(data[:500]); zenc.flush(); zenc.write(data[500:])
+assert zlib.decompress(zenc.getvalue()) == data
+dec = chunked.ChunkedGzipDecoder()
+assert b"".join(dec.feed(one[i:i + 7]) for i in range(0, len(one), 7)) == data
+assert lz77.decode(lz77.encode(data)) == data
+assert finish.Finish(1).into_result() == 1
+with tempfile.TemporaryDirectory() as tmp:
+    src, gz, back = (os.path.join(tmp, n) for n in ("s", "s.gz", "back"))
+    open(src, "wb").write(data)
+    for engine in ("cpu", "serial"):
+        assert cli.main(["-i", src, "-o", gz, "--engine", engine,
+                         "gzip-encode"]) == 0
+        assert gzip.decompress(open(gz, "rb").read()) == data
+        assert cli.main(["-i", gz, "-o", back, "--engine", engine,
+                         "--stream", "gzip-decode"]) == 0
+        assert open(back, "rb").read() == data
 blocked = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "libflate_tpu")]
 assert not blocked, blocked
@@ -232,12 +261,17 @@ def test_imports_and_runs_with_jax_blocked(small):
     branches and, for a member over 1 MiB, the gzip container; a raw
     stream by ``inflate_device``), encode (by default, in chain-8 quality
     mode, with the hash matcher, with fixed blocks, literals only and
-    stored blocks) and run the raw DEFLATE, zlib and gzip containers on
-    the "cpu" engine with both JAX and the reference package blocked."""
+    stored blocks), run the raw DEFLATE, zlib and gzip containers on
+    the "cpu" engine, the serial engine, the streaming façades (a gzip
+    round trip on "cpu", a sync-flushed zlib stream on "serial",
+    ``MultiDecoder`` on a file-like source), the chunked gzip decoder, the
+    public LZ77 API, ``Finish`` and the CLI (``gzip-encode`` and a
+    ``--stream`` ``gzip-decode`` on "cpu" and "serial") with both JAX and
+    the reference package blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n_mods, n_bytes = map(int, res.stdout.split())
-    assert n_mods >= 31
+    assert n_mods >= 44
     assert n_bytes == len(gzip.decompress(small))
