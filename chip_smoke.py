@@ -8,8 +8,9 @@ Phases, each of which raises on failure (exit code != 0):
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
    no CUDA means exit 1 before anything runs;
 2. build the twelve CUDA sources from ``libflate_tpu_torch/csrc`` with
-   one nvcc per source, all at once, for sm_90a, and the host token
-   decoder (``libflate_tpu_torch/native``) with g++; print the sort
+   one nvcc per source, all at once, for sm_90a, and the native host
+   library (``libflate_tpu_torch/native/libflate_native.cpp``) with g++;
+   print the sort
    matcher's and the parse's registers, shared memory and resident
    clusters / blocks at n = 65536, and the rank's, the pack's, the
    histogram's, the token fields', the two-table gather's (windows 16
@@ -163,6 +164,21 @@ Phases, each of which raises on failure (exit code != 0):
    against its plain version, and both on the main path's inputs again,
    each launched 48 times; (11f) every call's host clock (median of 3)
    and peak device memory, with the card's name and power limit.
+
+12. the native host engine (no kernel): ``pgzf.compress(engine=
+   "native")`` and ``native.deflate_greedy`` byte-identical to the
+   committed ``tests/data/native_*`` streams (pgzf at ``n_threads`` 0 and
+   1); the ``native`` and ``cuda`` engines' ``crc32`` / ``adler32`` of the
+   64 MiB against zlib; ``native.inflate`` member by member (walked by end
+   bits) and ``pgzf.decompress(engine="native")`` of the device stream
+   (phase 7) and of the 1024 stdlib-gzip members (phase 5c), then of
+   their first 256 and 512 (the gzip container's member walk, quadratic
+   in the stream), against the plaintext; ``pgzf.compress(64 MiB, 65536, engine="native")`` at
+   ``n_threads`` 0 and 1 (equal bytes, read back by stdlib gzip and the
+   native decode) and ``deflate.compress`` / ``decompress`` of 8 MiB on
+   ``native``; each on the host clock (median of 3) with the ratios, the
+   host CPU's model and ``os.cpu_count()`` beside the card's name and
+   power limit.
 
 Kernels are keyed by module and function (``parse.walk_emit`` and
 ``decode.walk_emit`` are two kernels).
@@ -2133,6 +2149,10 @@ def main() -> None:
     # and the two repaired kernels on their hard inputs
     port_surface(dev, card_line, data, rk_args, (a, b, valid), errs, row)
 
+    # 12. the native engine on the card's host: the committed reference
+    # streams, the checksums, both decode routes, host-clock times
+    native_engine(card_line, data, enc_stream, foreign)
+
     print(json.dumps({"kernels": summary}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
@@ -2822,6 +2842,181 @@ def port_surface(dev, card_line: str, data: bytes, rk_args, hist_args,
         "the allocation before, MiB): " + "; ".join(
             f"{k} {ms:.2f} ({peak:.0f})" for k, (ms, peak) in times.items())
         + f" [{card_line}]")
+
+
+#: the native engine's committed reference streams, written by
+#: scripts/make_native_fixture.py: name -> pgzf member size, or None for
+#: the raw ``deflate_greedy`` stream (its arguments in NATIVE_GREEDY_KW)
+NATIVE_FIXTURES = {
+    "native_pgzf_65536.pgz": 65536,
+    "native_pgzf_1024.pgz": 1024,
+    "native_pgzf_65024.pgz": 65024,
+    "native_deflate_lazy_chain.bin": None,
+}
+NATIVE_GREEDY_KW = {"block_size": 65536, "lazy": True, "max_chain": 32}
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it: its "model name" and the
+    vendor, family, model, stepping and clock fields that are there (some
+    kernels report the name as "unknown"), its architecture and its core
+    counts."""
+    import platform
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = "; ".join(f"{k} {fields[k]}" for k in (
+        "model name", "vendor_id", "cpu family", "model", "stepping",
+        "cpu MHz", "CPU implementer", "CPU part") if k in fields)
+    return (f"{model or 'no /proc/cpuinfo'} ({platform.machine()}), "
+            f"os.cpu_count() {os.cpu_count()}, usable "
+            f"{len(os.sched_getaffinity(0))}")
+
+
+def native_members(stream: bytes, window: int = 1 << 17,
+                   ends: list | None = None) -> bytes:
+    """Every gzip member of ``stream`` through ``native.inflate``, walked
+    by its end bit (no index); a member body is read from a ``window``
+    -byte slice.  Each member's end offset is appended to ``ends`` when
+    given."""
+    from libflate_tpu_torch import native
+    from libflate_tpu_torch.formats import gzip as fgzip
+    out, pos = [], 0
+    while pos < len(stream):
+        _hdr, body = fgzip.Header.decode(stream, pos)
+        plain, end_bit = native.inflate(stream[body:body + window])
+        isize = struct.unpack_from("<I", stream, body + (end_bit + 7) // 8
+                                   + 4)[0]
+        if isize != len(plain) & 0xFFFFFFFF:
+            raise AssertionError(f"member at {pos}: ISIZE {isize}, decoded "
+                                 f"{len(plain)}")
+        out.append(plain)
+        pos = body + (end_bit + 7) // 8 + 8
+        if ends is not None:
+            ends.append(pos)
+    return b"".join(out)
+
+
+def native_engine(card_line: str, data: bytes, dev_stream: bytes,
+                  foreign: bytes) -> None:
+    """Phase 12.  ``data``: the 64 MiB plaintext; ``dev_stream``: its
+    device encode (phase 7); ``foreign``: it as 1024 stdlib-gzip members
+    (phase 5c).  Raises on any mismatch."""
+    from libflate_tpu_torch import backend, native
+    from libflate_tpu_torch.formats import deflate as fdeflate
+    from libflate_tpu_torch.formats import pgzf
+
+    t_phase = time.perf_counter()
+    cpu = host_cpu()
+    log(f"phase 12 host: {cpu}; library {native.library_path().name} "
+        f"[{card_line}]")
+    # committed reference streams, at one thread and one a core
+    for fname, member in NATIVE_FIXTURES.items():
+        want = (DATA / fname).read_bytes()
+        if member is None:
+            plain = zlib.decompress(want, -15)
+            got = [native.deflate_greedy(plain, **NATIVE_GREEDY_KW)]
+        else:
+            plain = gzip.decompress(want)
+            got = [pgzf.compress(plain, member, engine="native",
+                                 n_threads=t) for t in (0, 1)]
+            if pgzf.decompress(want, engine="native") != plain:
+                raise AssertionError(f"{fname}: native decode differs")
+        if any(g != want for g in got):
+            raise AssertionError(f"{fname}: the native engine's stream "
+                                 f"differs from the committed one")
+    log(f"native streams byte-identical to {sorted(NATIVE_FIXTURES)} "
+        f"(pgzf at n_threads 0 and 1)")
+
+    times: dict = {}
+
+    def timed(what: str, fn, plain_bytes: int):
+        """The first of 3 calls' results; the median host time and the
+        rate in plaintext bytes into ``times``."""
+        walls, out = [], None
+        for i in range(3):
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if i == 0:
+                out = res
+        ms = statistics.median(walls) * 1e3
+        times[what] = (ms, plain_bytes / ms / 1e3)
+        return out
+
+    # checksums against zlib, beside the cuda engine's
+    eng = {n: backend.get(n) for n in ("native", "cuda")}
+    for fn in ("crc32", "adler32"):
+        want = getattr(zlib, fn)(data)
+        for n, e in eng.items():
+            got = timed(f"{n} {fn}(64 MiB)", lambda e=e: getattr(e, fn)(data),
+                        len(data))
+            if got != want:
+                raise AssertionError(f"{n} {fn} {got:#x} != zlib {want:#x}")
+    # the decoders against stdlib gzip on the device stream and the 1024
+    # stdlib-gzip members: member by member, then pgzf's native routes
+    for what, stream in (("device stream", dev_stream),
+                         ("1024 stdlib gzip members", foreign)):
+        ends: list = []                     # the last loop's: foreign's
+        if native_members(stream, ends=ends) != data:
+            raise AssertionError(f"native.inflate of the {what} differs")
+        got = timed(f"pgzf.decompress(native) of the {what}",
+                    lambda stream=stream: pgzf.decompress(stream,
+                                                          engine="native"),
+                    len(data))
+        if got != data:
+            raise AssertionError(f"pgzf.decompress(native) of the {what} "
+                                 f"differs")
+    # the gzip container's member walk (no index) over the first 256 and
+    # 512 of those members: its time grows with the square of the stream
+    for n in (256, 512):
+        part, plain = foreign[:ends[n - 1]], data[:n << 16]
+        if timed(f"pgzf.decompress(native) of the first {n} stdlib gzip "
+                 f"members", lambda part=part: pgzf.decompress(
+                     part, engine="native"), len(plain)) != plain:
+            raise AssertionError(f"pgzf.decompress(native) of the first {n} "
+                                 f"stdlib gzip members differs")
+    # the native pgzf encode, one thread a core and one thread
+    streams = {t: timed(f"pgzf.compress(64 MiB, 65536, native, n_threads="
+                        f"{t})", lambda t=t: pgzf.compress(
+                            data, 65536, engine="native", n_threads=t),
+                        len(data))
+               for t in (0, 1)}
+    if streams[0] != streams[1]:
+        raise AssertionError("n_threads 0 and 1 give different streams")
+    nat = streams[0]
+    if gzip.decompress(nat) != data:
+        raise AssertionError("stdlib gzip does not read the native stream")
+    if timed("pgzf.decompress(native) of the native stream",
+             lambda: pgzf.decompress(nat, engine="native"),
+             len(data)) != data:
+        raise AssertionError("pgzf.decompress(native) of its own stream")
+    p8 = data[:8 << 20]
+    d8 = timed("deflate.compress(8 MiB, native)",
+               lambda: fdeflate.compress(p8, engine="native"), len(p8))
+    if zlib.decompress(d8, -15) != p8:
+        raise AssertionError("zlib does not read the native deflate stream")
+    if timed("deflate.decompress(native) of it",
+             lambda: fdeflate.decompress(d8, engine="native"),
+             len(p8)) != p8:
+        raise AssertionError("deflate.decompress(native) differs")
+    log(f"native engine: pgzf.compress(64 MiB, 65536) {len(data)} -> "
+        f"{len(nat)} bytes (ratio {len(nat) / len(data):.6f}); "
+        f"deflate.compress(8 MiB) -> {len(d8)} bytes (ratio "
+        f"{len(d8) / len(p8):.6f}); native.inflate member by member and "
+        f"pgzf.decompress(native) equal gzip on the device stream and the "
+        f"1024 stdlib gzip members")
+    log("phase 12 host clock, median of 3, ms (MB/s of plaintext): "
+        + "; ".join(f"{k} {ms:.2f} ({rate:.1f})"
+                    for k, (ms, rate) in times.items())
+        + f" [{card_line}] [{cpu}]")
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -5,9 +5,9 @@ PGZF device encode and the device decode (sync-indexed, or speculative
 for shared-table streams without the sync index), and the generic device
 engine under the raw DEFLATE, zlib and gzip containers, on an NVIDIA
 Hopper card (sm_90a), and has the reference's host surface beside it:
-the ``serial`` engine, the streaming façades, the chunked decoders, the
-LZ77 API and the command line.  It imports nothing of ``libflate_tpu``:
-the host pieces it needs are its own copies.  The layout mirrors the
+the ``serial`` and ``native`` engines, the streaming façades, the
+chunked decoders, the LZ77 API and the command line.  It imports nothing
+of ``libflate_tpu``: the host pieces it needs are its own copies.  The layout mirrors the
 reference file by file:
 
     formats/pgzf.py          compress, decompress_to_device, decompress
@@ -17,7 +17,7 @@ reference file by file:
     formats/deflate.py       raw DEFLATE: one-shots, BlockStreamer,
                              Encoder, Decoder
     backend.py               engine registry: "cuda" (default), "cpu",
-                             "serial"
+                             "serial", "native"
     chunked.py               resumable push decoders (host)
     lz77.py                  public LZ77 API (host)
     finish.py                Finish, AutoFinish, AutoFinishUnchecked
@@ -45,8 +45,11 @@ reference file by file:
     serial/                  the serial engine: bitio, huffman, lz77,
                              deflate (also EncodeOptions, stored blocks,
                              the header parser)
-    native/                  host token decode of foreign streams (C++)
+    native/                  the native host engine: one C++ library
+                             (libflate_native.cpp, g++ at first use),
+                             its bindings and the "native" engine
     spec/constants.py, utils/checksum.py   format constants, checksums
+    utils/profiling.py       StageTimer, device_trace, block_until_ready
 
 Every kernel wrapper takes CPU tensors to the kernel's plain PyTorch
 version and CUDA tensors to the kernel; it never falls back from one to

@@ -5,7 +5,7 @@ engine's registration, ``libflate_tpu/ops/pipeline.py:891-918``).
 An engine is a set of functions with one contract: ``deflate(data,
 options)`` -> raw DEFLATE bytes, ``inflate(data)`` -> an
 ``InflateResult`` (``data``, ``end_bit``), ``crc32(data, crc=0)`` and
-``adler32(data, adler=1)`` -> int.  Three are registered:
+``adler32(data, adler=1)`` -> int.  Four are registered, in this order:
 
 * ``cuda`` (the default): the generic device engine on the card,
   ``ops/pipeline.deflate_device`` and ``ops/deflate_decode.inflate_device``,
@@ -14,13 +14,19 @@ options)`` -> raw DEFLATE bytes, ``inflate(data)`` -> an
   version, the glue branches);
 * ``serial``: the host codec in plain Python and numpy
   (``serial/deflate.py``, ``utils/checksum.py``), the reference's
-  ``serial`` engine.
+  ``serial`` engine;
+* ``native``: the threaded C++ host codec (``native/engine.py``, the
+  library of ``native/libflate_native.cpp``), the reference's ``native``
+  engine; available where a C++ compiler is on ``PATH`` or the library
+  is built.
 
 ``get(None)`` and ``get("auto")`` are ``cuda``, which raises
 RuntimeError where CUDA is not available.  This departs from the
 reference, whose ``get(None)`` prefers ``native`` and then ``serial``:
-the port runs on the card unless the caller names another engine, so
-``serial`` runs only when it is named.
+the port's entry points run on the card unless the caller asks for the
+host, so ``native`` and ``serial`` run only when they are named.
+``engine="native"`` gives the reference's default bytes; the default
+gives the reference's ``engine="tpu"`` bytes.
 """
 from __future__ import annotations
 
@@ -128,3 +134,8 @@ def serial_engine() -> Engine:
 
 
 register(serial_engine())
+
+
+from .native.engine import native_engine  # noqa: E402 - needs Engine
+
+register(native_engine())

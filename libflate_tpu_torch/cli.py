@@ -1,20 +1,21 @@
 """Command-line tool (the port's copy of ``libflate_tpu/cli.py``)::
 
     python -m libflate_tpu_torch.cli [-i IN] [-o OUT] [-v]
-        [--engine cuda|cpu|serial] [--stream] SUBCOMMAND
+        [--engine cuda|cpu|native|serial] [--stream] SUBCOMMAND
 
 Subcommands: copy, byte-read, gzip-decode, gzip-decode-multi,
 gzip-encode, zlib-decode, zlib-encode, pgzf-encode, pgzf-decode.  "-"
 means stdin / stdout.  ``--engine`` names the engine of
-:mod:`.backend` the codecs run on: ``cuda`` (the default), ``cpu`` or
-``serial``.  ``pgzf-encode`` / ``pgzf-decode`` run on the card for
-``cuda`` and on CPU tensors for ``cpu`` (``device=``), and take the
-reference's per-member host route for ``serial`` (``engine="serial"``).
+:mod:`.backend` the codecs run on: ``cuda`` (the default), ``cpu``,
+``native`` (the threaded C++ host codec) or ``serial``.  ``pgzf-encode``
+/ ``pgzf-decode`` run on the card for ``cuda`` and on CPU tensors for
+``cpu`` (``device=``), and take the reference's host routes for
+``native`` and ``serial`` (``engine=``).
 
 ``--stream`` runs the gzip / zlib codecs through the streaming façades:
 a decoder pulls the input CHUNK bytes at a time through the host chunked
 decoders (bounded memory, whatever the engine); an encoder streams in
-bounded memory on ``serial`` and, on ``cuda`` or ``cpu``, buffers the
+bounded memory on ``serial`` and, on any other engine, buffers the
 input and encodes it whole at the end.  The default mode reads whole
 files.
 """
@@ -121,12 +122,12 @@ class _WriteAdapter:
 
 def _pgzf_route(engine: str) -> dict:
     """pgzf's keyword for ``--engine``: ``device`` for "cuda" / "cpu",
-    the reference's per-member route for "serial"."""
+    the reference's host routes for "native" and "serial"."""
     if engine in ("cuda", "cpu"):
         return {"device": engine}
-    if engine == "serial":
-        return {"engine": "serial"}
-    raise ValueError(f"pgzf takes --engine cuda, cpu or serial, "
+    if engine in ("native", "serial"):
+        return {"engine": engine}
+    raise ValueError(f"pgzf takes --engine cuda, cpu, native or serial, "
                      f"got {engine!r}")
 
 
@@ -138,7 +139,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("-o", "--output", default="-")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--engine", default="cuda",
-                   help="cuda (default) | cpu | serial")
+                   help="cuda (default) | cpu | native | serial")
     p.add_argument("--stream", action="store_true",
                    help="bounded-memory streaming codecs (chunked "
                         "decoders / BlockStreamer encoder)")

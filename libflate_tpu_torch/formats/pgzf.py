@@ -35,14 +35,23 @@ ImportError falls through to the next, the last to the foreign path,
 and the foreign path's to the gzip container on the device's engine
 (``:508-511``).  Every branch ends in one device-to-host copy of the rows.
 
+``engine="native"`` takes the reference's host routes instead (its
+``_compress_native``, ``:209-230``, and the threaded decodes, ``:465-493``,
+``:515-537``) on the port's C library (:mod:`..native`).  The trace hooks
+(``:101-131``) read ``LIBFLATE_TRACE``: "torch" wraps the device encode
+and the sync branch in a ``torch.profiler`` trace, any other value times
+the sync branch's stages.
+
 The host helpers — member index, LS sync index, chunk spans, member
 header — are the port's own copies of the reference's (``:38-74``,
 ``:76-101``, ``:126-144``, ``:425-449``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import struct
+import sys
 import zlib
 from dataclasses import dataclass
 
@@ -97,6 +106,17 @@ _HEADER_LEN = len(_member_header(0))
 _SIZE_OFFSET = _HEADER_LEN - 4          # the u32 ends the LF subfield
 
 
+def _lf_member(body: bytes, crc: int, isize: int,
+               sync_payload: bytes | None = None) -> bytes:
+    """One indexed member: the LF (and LS, where given) header, ``body``,
+    then the CRC-32 and ISIZE trailer, with LF patched to its size."""
+    member = bytearray(_member_header(0, sync_payload=sync_payload))
+    member += body
+    member += struct.pack("<II", crc, isize)
+    struct.pack_into("<I", member, _SIZE_OFFSET, len(member))
+    return bytes(member)
+
+
 def _sync_payload(k: int, n_tokens: int, offsets: np.ndarray):
     """The "LS" subfield: u8 version=1 | u8 flags=0 | u16 K | u32
     n_tokens | u32 first_bit | u16 n_chunks | u16 deltas[n_chunks-1]
@@ -110,6 +130,49 @@ def _sync_payload(k: int, n_tokens: int, offsets: np.ndarray):
         return None
     return (struct.pack("<BBHIIH", 1, 0, k, n_tokens, first_bit, n_chunks)
             + deltas64.astype("<u2").tobytes())
+
+
+def _tracer():
+    """A StageTimer when ``LIBFLATE_TRACE`` is set to anything but "torch"
+    (``utils.profiling``); else None.  Under "torch" the profiler trace
+    alone runs: a stage's synchronisation would show in it."""
+    if os.environ.get("LIBFLATE_TRACE") in (None, "", "torch"):
+        return None
+    from ..utils.profiling import StageTimer
+    return StageTimer()
+
+
+def _maybe_stage(timer, name: str, device=None):
+    """``timer``'s stage ``name``, ending when ``device``'s queued work has
+    finished; a null context when ``timer`` is None."""
+    if timer is None:
+        return contextlib.nullcontext()
+    return _synced_stage(timer, name, device)
+
+
+@contextlib.contextmanager
+def _synced_stage(timer, name: str, device):
+    with timer.stage(name):
+        yield
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def _trace_report(timer, label: str) -> None:
+    if timer:
+        print(f"[libflate-trace] {label}\n{timer.report()}",
+              file=sys.stderr, flush=True)
+
+
+def _maybe_torch_trace():
+    """``LIBFLATE_TRACE=torch`` wraps the call in ``utils.profiling.
+    device_trace`` at ``LIBFLATE_TRACE_DIR`` (``libflate_trace`` under
+    the temp directory by default); any other value keeps the StageTimer
+    alone."""
+    if os.environ.get("LIBFLATE_TRACE") != "torch":
+        return contextlib.nullcontext()
+    from ..utils.profiling import device_trace
+    return device_trace(os.environ.get("LIBFLATE_TRACE_DIR") or None)
 
 
 def _parse_sync(hdr: "fgzip.Header"):
@@ -242,7 +305,8 @@ def _encode_knobs(options) -> dict:
 
 
 def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
-             options=None, device="cuda", engine: str | None = None) -> bytes:
+             options=None, device="cuda", engine: str | None = None,
+             n_threads: int = 0) -> bytes:
     """Compress into an indexed multi-member gzip stream.
 
     Byte-identical to the reference's device encode
@@ -275,28 +339,41 @@ def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
       through :func:`..formats.gzip.compress` on the device's engine,
       re-headed with the LF index; any member size.
 
-    ``engine="serial"`` takes the reference's last route instead, member
-    by member through :func:`..formats.gzip.compress` on the serial host
-    engine, re-headed with the LF index (any member size; ``device`` is
-    not read).
+    ``engine="native"`` takes the reference's ``_compress_native``
+    instead: every member a raw DEFLATE body of the C library's
+    ``deflate_batch`` on ``n_threads`` host threads (0: one a core), the
+    same bytes whatever ``n_threads``, with the reference's matcher
+    mapping: "greedy" is greedy with one candidate, "lazy" lazy with one,
+    "chain" lazy over ``max_chain``-deep hash chains, and no options (or
+    any other matcher) lazy over chains 128 deep; any member size.
+    ``engine="serial"`` takes the reference's last route, member by
+    member through :func:`..formats.gzip.compress` on the serial host
+    engine, re-headed with the LF index (any member size).  ``device`` is
+    not read on either.
 
     A coded member that is not smaller than stored blocks is written
     stored (no LS index).  Any stock gzip reader decodes the result.
 
     Runs on ``device`` ("cuda" unless the caller asks for "cpu", which
-    runs every kernel's plain version).  Raises ValueError for an unknown
-    matcher, ``block_type``, ``engine`` or ``LIBFLATE_DEVICE_MATCHER``
-    value, a bad window or member size; RuntimeError for "cuda" without
-    CUDA; DeflateError if a coded field breaks the pack invariant (an
+    runs every kernel's plain version) for ``engine`` None or "auto".
+    With ``LIBFLATE_TRACE=torch`` the device routes run inside a
+    ``torch.profiler`` trace written to ``LIBFLATE_TRACE_DIR``.  Raises
+    ValueError for an unknown matcher, ``block_type``, ``engine`` or
+    ``LIBFLATE_DEVICE_MATCHER`` value, a bad window or member size;
+    RuntimeError for "cuda" without CUDA or "native" without the C
+    library; DeflateError if a coded field breaks the pack invariant (an
     internal error).
     """
     data = bytes(data)
-    if engine is not None:
-        if engine != "serial":
-            raise ValueError(f"pgzf.compress: engine must be None or "
-                             f"'serial', got {engine!r}")
+    if engine == "native":
+        _check_member_size(member_size, "members")
+        return _compress_native(data, member_size, options, n_threads)
+    if engine == "serial":
         _check_member_size(member_size, "members")
         return _compress_members(data, member_size, options, "serial")
+    if engine not in (None, "auto"):
+        raise ValueError(f"pgzf.compress: engine must be None, 'auto', "
+                         f"'native' or 'serial', got {engine!r}")
     dev = _device(device)
     matcher_name = (getattr(options, "matcher", "greedy") if options
                     else "greedy")
@@ -307,11 +384,20 @@ def compress(data: bytes, member_size: int = DEFAULT_MEMBER_SIZE,
         return _compress_members(data, member_size, options, dev.type)
     if block_type in ("fixed", "auto"):
         _check_member_size(member_size, "generic")
-        return _compress_generic(data, member_size, block_type, dev)
+        with _maybe_torch_trace():
+            return _compress_generic(data, member_size, block_type, dev)
     if block_type != "dynamic":
         raise ValueError(f"unknown block_type {block_type!r}")
     _check_member_size(member_size, "dynamic")
     knobs = _encode_knobs(options)
+    with _maybe_torch_trace():
+        return _compress_shared(data, member_size, knobs, dev)
+
+
+def _compress_shared(data: bytes, member_size: int, knobs: dict,
+                     dev) -> bytes:
+    """The shared-table sync encode of :func:`compress`: batches of 128
+    members through ``encode_batch``, then :func:`_assemble`."""
     raw = np.frombuffer(data, np.uint8)
     n_members = max(1, -(-len(raw) // member_size))
     n_batches = -(-n_members // DEV_BATCH)
@@ -367,12 +453,37 @@ def _assemble(data: bytes, member_size: int, bodies, crcs, syncs) -> bytes:
             # incompressible member: stored blocks beat entropy coding
             body = deflate_stored(plain)
             sync_payload = None
-        member = bytearray(_member_header(0, sync_payload=sync_payload))
-        member += body
-        member += struct.pack("<II", int(crcs[i]), len(plain))
-        struct.pack_into("<I", member, _SIZE_OFFSET, len(member))
-        out += member
+        out += _lf_member(body, int(crcs[i]), len(plain), sync_payload)
     return bytes(out)
+
+
+def _native_matcher(options) -> tuple[bool, int]:
+    """(lazy, max_chain) of the reference's native route for ``options``
+    (``libflate_tpu/formats/pgzf.py:172-185``)."""
+    name = getattr(options, "matcher", "") if options else ""
+    if name == "chain":
+        return True, getattr(options, "max_chain", 128)
+    if name in ("greedy", "lazy"):
+        return name == "lazy", 1
+    return True, 128
+
+
+def _compress_native(data: bytes, member_size: int, options,
+                     n_threads: int = 0) -> bytes:
+    """The reference's ``_compress_native``: the members' raw DEFLATE
+    bodies and CRCs from the C library's threaded ``deflate_batch``, each
+    behind an LF-indexed header (no LS index, no stored fallback)."""
+    from .. import backend, native
+    backend.get("native")                   # RuntimeError when unavailable
+    lazy, max_chain = _native_matcher(options)
+    n = len(data)
+    n_members = max(1, -(-n // member_size))
+    offs = np.minimum(np.arange(n_members + 1, dtype=np.uint64)
+                      * np.uint64(member_size), np.uint64(n))
+    bodies, crcs = native.deflate_batch(data, offs, n_threads=n_threads,
+                                        lazy=lazy, max_chain=max_chain)
+    return b"".join(_lf_member(body, int(crcs[i]), int(offs[i + 1] - offs[i]))
+                    for i, body in enumerate(bodies))
 
 
 def _compress_generic(data: bytes, member_size: int, block_type: str,
@@ -419,9 +530,8 @@ def _compress_members(data: bytes, member_size: int, options,
     for i in range(0, max(len(data), 1), member_size):
         plain = fgzip.compress(data[i:i + member_size], options=options,
                                engine=engine)
-        member = bytearray(_member_header(0) + plain[10:])
-        struct.pack_into("<I", member, _SIZE_OFFSET, len(member))
-        out += member
+        crc, isize = struct.unpack("<II", plain[-8:])
+        out += _lf_member(plain[10:-8], crc, isize)
     return bytes(out)
 
 
@@ -819,7 +929,7 @@ def _spec_token_groups(data: bytes, refs: list[MemberRef], device):
 
 
 def decompress(data: bytes, verify: bool = True, device="cuda",
-               engine: str | None = None) -> bytes:
+               engine: str | None = None, n_threads: int = 0) -> bytes:
     """Decompress a gzip stream on ``device`` and return its plaintext.
 
     The counterpart of the reference's ``decompress`` on its device
@@ -845,28 +955,44 @@ def decompress(data: bytes, verify: bool = True, device="cuda",
     runs the kernel's debug-checks form and raises DeflateError if a
     chunk's cursor left the window the reference would have staged.
 
-    ``engine="serial"`` takes the reference's route for a host engine
-    instead: :func:`..formats.gzip.decompress` with ``multi=True`` on the
-    serial engine, every CRC verified (``device`` is not read).
+    ``engine="native"`` takes the reference's host routes in its order:
+    the C library walks the LF index and decodes every member in place on
+    ``n_threads`` host threads (0: one a core), CRCs checked when
+    ``verify``; a stream the walk refuses but the Python index takes
+    decodes by the library's ``inflate_batch``; a stream without the LF
+    index by :func:`..formats.gzip.decompress` with ``multi=True`` on the
+    ``native`` engine.  ``engine="serial"`` takes the reference's route for
+    the serial engine: :func:`..formats.gzip.decompress` with
+    ``multi=True``, every CRC verified.  ``device`` is not read on either.
+
+    ``LIBFLATE_TRACE`` set to "torch" runs the sync branch inside a
+    ``torch.profiler`` trace written to ``LIBFLATE_TRACE_DIR``
+    (``libflate_trace`` under the temp directory, ``TMPDIR``, by
+    default); any other non-empty value prints the sync branch's stage
+    times to stderr.
 
     Raises DeflateError for a malformed or corrupt member (an invalid
     Huffman code, a bad back-reference), GzipError for a CRC or size
     mismatch or a truncated trailer, EOFError for a stream cut inside a
-    body, ValueError for an empty stream or an ``engine`` other than None
-    and "serial", and RuntimeError for ``device="cuda"`` without CUDA.
+    body, ValueError for an empty stream or an unknown ``engine``, and
+    RuntimeError for ``device="cuda"`` without CUDA or "native" without
+    the C library.
     """
     data = bytes(data)
-    if engine is not None:
-        if engine != "serial":
-            raise ValueError(f"pgzf.decompress: engine must be None or "
-                             f"'serial', got {engine!r}")
+    if engine == "native":
+        return _decompress_native_routes(data, verify, n_threads)
+    if engine == "serial":
         return fgzip.decompress(data, engine="serial", multi=True)
+    if engine not in (None, "auto"):
+        raise ValueError(f"pgzf.decompress: engine must be None, 'auto', "
+                         f"'native' or 'serial', got {engine!r}")
     dev = _device(device)
     refs = index_members(data)
     if refs is not None:
         if not os.environ.get("LIBFLATE_NO_SYNC"):
             try:
-                return _decompress_sync(data, refs, verify, dev)
+                with _maybe_torch_trace():
+                    return _decompress_sync(data, refs, verify, dev)
             except ImportError:
                 pass
         if not os.environ.get("LIBFLATE_NO_SPEC"):
@@ -884,6 +1010,37 @@ def decompress(data: bytes, verify: bool = True, device="cuda",
         # a member past the device expansion's 1 MiB: the gzip container
         # on the device's engine, a block at a time
         return fgzip.decompress(data, engine=dev.type, multi=True)
+
+
+def _decompress_native_routes(data: bytes, verify: bool,
+                              n_threads: int) -> bytes:
+    """``decompress(engine="native")``: the reference's three host routes
+    (``libflate_tpu/formats/pgzf.py:465-493``, ``:515-537``)."""
+    from .. import backend, native
+    backend.get("native")                   # RuntimeError when unavailable
+    idx = native.pgzf_index(data)
+    if idx is not None:
+        # the C walk of the LF index, the bodies decoded in place
+        starts, ends, crcs_expected, isizes = idx
+        out, crcs = native.inflate_batch_at(data, starts, ends, isizes,
+                                            n_threads=n_threads)
+    else:
+        refs = index_members(data)
+        if refs is None:
+            return fgzip.decompress(data, engine="native", multi=True)
+        bodies = b"".join(data[r.body:r.end - 8] for r in refs)
+        offs = np.zeros(len(refs) + 1, np.uint64)
+        np.cumsum([r.end - 8 - r.body for r in refs], out=offs[1:])
+        crcs_expected, isizes = _member_trailers(data, refs)
+        out, crcs = native.inflate_batch(bodies, offs, isizes,
+                                         n_threads=n_threads)
+    if verify and (crcs != crcs_expected).any():
+        bad = int(np.argmax(crcs != crcs_expected))
+        raise fgzip.GzipError(
+            f"gzip CRC mismatch in member {bad}: stream says "
+            f"{int(crcs_expected[bad]):#010x}, computed "
+            f"{int(crcs[bad]):#010x}")
+    return out
 
 
 def _join_rows(n_members: int, parts, device):
@@ -978,14 +1135,19 @@ def _decompress_sync(data: bytes, refs: list[MemberRef], verify: bool,
     first bit that matches the header decode with the sync kernel, a
     launch per group of consecutive such members sharing tables and K;
     the others through the foreign token decode.  ImportError before any
-    decode when no member qualifies, or for a corrupt LS index."""
+    decode when no member qualifies, or for a corrupt LS index.  With
+    ``LIBFLATE_TRACE`` set, each stage is timed (ending when the card is
+    done) and the report goes to stderr."""
+    timer = _tracer()
     n = len(refs)
-    crcs, isizes = _member_trailers(data, refs)
-    syncs = _member_syncs(data, refs)
+    with _maybe_stage(timer, "header+ls parse"):
+        crcs, isizes = _member_trailers(data, refs)
+        syncs = _member_syncs(data, refs)
     if not any(s is not None for s in syncs):
         raise ImportError("no sync index present")
-    lit_ls, dist_ls, starts64, flags = parse_block_headers(
-        [data[r.body:r.end - 8] for r in refs])
+    with _maybe_stage(timer, "block headers"):
+        lit_ls, dist_ls, starts64, flags = parse_block_headers(
+            [data[r.body:r.end - 8] for r in refs])
     device_ok = np.array(
         [s is not None and flags[i] == 1 | (C.BTYPE_DYNAMIC << 1)
          and int(lit_ls[i].max()) <= 12 and int(dist_ls[i].max()) <= 8
@@ -997,7 +1159,8 @@ def _decompress_sync(data: bytes, refs: list[MemberRef], verify: bool,
     host_idx = [int(i) for i in np.flatnonzero(~device_ok)]
     parts = []
     if host_idx:
-        rows, sizes = _host_rows(data, refs, host_idx, device)
+        with _maybe_stage(timer, "host members", device):
+            rows, sizes = _host_rows(data, refs, host_idx, device)
         parts.append((host_idx, rows, sizes))
 
     groups: list[list[int]] = []
@@ -1008,12 +1171,16 @@ def _decompress_sync(data: bytes, refs: list[MemberRef], verify: bool,
         else:
             groups.append([i])
     debug = debug_checks()
-    for prep in _stage_sync_groups(data, refs, groups, syncs, lit_ls,
-                                   dist_ls, isizes, crcs, device):
-        toks = sync_decode(prep["words"], prep["start_bits"],
-                           prep["counts"], prep["lit_t"], prep["dist_t"],
-                           prep["k_tok"], root_bits=prep["root_bits"],
-                           debug=debug, d_words=prep["d_words"])
+    with _maybe_stage(timer, "host staging", device):
+        preps = _stage_sync_groups(data, refs, groups, syncs, lit_ls,
+                                   dist_ls, isizes, crcs, device)
+    for prep in preps:
+        with _maybe_stage(timer, "sync kernel", device):
+            toks = sync_decode(prep["words"], prep["start_bits"],
+                               prep["counts"], prep["lit_t"],
+                               prep["dist_t"], prep["k_tok"],
+                               root_bits=prep["root_bits"], debug=debug,
+                               d_words=prep["d_words"])
         if debug:
             marked = ((toks & DEBUG_POISON) != 0).any(dim=1)
             if bool(marked.any()):
@@ -1022,27 +1189,34 @@ def _decompress_sync(data: bytes, refs: list[MemberRef], verify: bool,
                     f"staged window) in chunk slot "
                     f"{int(torch.argmax(marked.to(torch.int8)))} — corrupt "
                     f"LS index or bitstream")
-        plain, n_out, err, crc_f = _sync_to_plain(
-            toks, prep["bsz"], prep["max_nc"], prep["k_tok"],
-            prep["n_tokens"], prep["member_cap"])
-        bad = err.cpu().numpy() | (n_out.cpu().numpy() != prep["isizes"])
-        if bad.any():
-            raise DeflateError(f"token expansion failed in member "
-                               f"{prep['members'][int(np.argmax(bad))]}")
-        if verify:
-            got = crc32_from_padded_f(crc_f.cpu().numpy(), prep["isizes"],
-                                      prep["member_cap"])
-            for k, i in enumerate(prep["members"]):
-                if int(got[k]) != int(prep["crcs_expected"][k]):
-                    raise fgzip.GzipError(f"gzip CRC mismatch in member {i}")
+        with _maybe_stage(timer, "expand+crc", device):
+            plain, n_out, err, crc_f = _sync_to_plain(
+                toks, prep["bsz"], prep["max_nc"], prep["k_tok"],
+                prep["n_tokens"], prep["member_cap"])
+            bad = err.cpu().numpy() | (n_out.cpu().numpy()
+                                       != prep["isizes"])
+            if bad.any():
+                raise DeflateError(f"token expansion failed in member "
+                                   f"{prep['members'][int(np.argmax(bad))]}")
+            if verify:
+                got = crc32_from_padded_f(crc_f.cpu().numpy(),
+                                          prep["isizes"], prep["member_cap"])
+                for k, i in enumerate(prep["members"]):
+                    if int(got[k]) != int(prep["crcs_expected"][k]):
+                        raise fgzip.GzipError(
+                            f"gzip CRC mismatch in member {i}")
         parts.append((prep["members"], plain, prep["isizes"]))
 
-    out, offs = _join_rows(n, parts, device)
+    with _maybe_stage(timer, "D2H join", device):
+        out, offs = _join_rows(n, parts, device)
     if verify and host_idx:
-        for i in host_idx:
-            if offs[i + 1] - offs[i] != int(isizes[i]):
-                raise fgzip.GzipError(f"gzip ISIZE mismatch in member {i}")
-        _check_host_crcs(out, offs, crcs, host_idx)
+        with _maybe_stage(timer, "host members crc"):
+            for i in host_idx:
+                if offs[i + 1] - offs[i] != int(isizes[i]):
+                    raise fgzip.GzipError(
+                        f"gzip ISIZE mismatch in member {i}")
+            _check_host_crcs(out, offs, crcs, host_idx)
+    _trace_report(timer, "sync decode")
     return out
 
 

@@ -1859,3 +1859,39 @@ def test_odd_member_size_end_to_end(dev, name, member, matcher,
     assert pgzf.compress(plain, member_size=member, device="cuda") == ref
     assert hist.token_hist.launches >= 1 and fields.token_fields.launches >= 1
     assert pgzf.decompress(ref, device="cuda") == plain
+
+
+def test_native_library_builds_on_the_card_host(dev):
+    from libflate_tpu_torch import native
+    native.load()
+    assert native.library_path().exists()
+    assert native.crc32(b"123456789") == 0xCBF43926
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.NATIVE_FIXTURES))
+def test_native_streams_equal_committed_fixtures(dev, name):
+    """The native engine on the card's host writes the committed
+    reference streams (``scripts/make_native_fixture.py``) at one thread
+    and at one a core."""
+    from libflate_tpu_torch import native
+    want = (DATA / name).read_bytes()
+    member = chip_smoke.NATIVE_FIXTURES[name]
+    if member is None:
+        assert native.deflate_greedy(zlib.decompress(want, -15),
+                                     **chip_smoke.NATIVE_GREEDY_KW) == want
+        return
+    plain = gzip.decompress(want)
+    for n_threads in (0, 1):
+        assert pgzf.compress(plain, member, engine="native",
+                             n_threads=n_threads) == want
+    assert pgzf.decompress(want, engine="native") == plain
+
+
+def test_native_decodes_the_device_stream(dev):
+    """A stream the card wrote (LF and LS indices, shared tables) decodes
+    on the native engine through the C index walk, and member by member
+    through ``native.inflate``."""
+    plain = gzip.decompress((DATA / "pgzf_sync_zipf_small.pgz").read_bytes())
+    stream = pgzf.compress(plain, member_size=4096, device="cuda")
+    assert pgzf.decompress(stream, engine="native") == plain
+    assert chip_smoke.native_members(stream) == plain

@@ -323,7 +323,7 @@ def test_kernel_branches_differ_from_sort_branch(hash_ref):
 
 
 def test_engine_registry():
-    assert backend.names() == ["cpu", "cuda", "serial"]
+    assert backend.names() == ["cpu", "cuda", "native", "serial"]
     assert backend.get("cpu").name == "cpu"
     with pytest.raises(KeyError):
         backend.get("tpu")

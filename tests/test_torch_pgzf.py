@@ -246,6 +246,31 @@ with tempfile.TemporaryDirectory() as tmp:
         assert cli.main(["-i", gz, "-o", back, "--engine", engine,
                          "--stream", "gzip-decode"]) == 0
         assert open(back, "rb").read() == data
+# the native engine: pgzf's two native routes (the C index walk, and
+# stdlib gzip through the gzip container), the registry, the CLI, and
+# the stage timer
+from libflate_tpu_torch import backend, native
+from libflate_tpu_torch.utils.profiling import StageTimer
+nat = pgzf.compress(data, 1024, engine="native", n_threads=2)
+assert nat == pgzf.compress(data, 1024, engine="native", n_threads=1)
+assert gzip.decompress(nat) == data
+assert pgzf.decompress(nat, engine="native") == data
+assert pgzf.decompress(gzip.compress(data), engine="native") == data
+assert fgzip.decompress(fgzip.compress(data, engine="native"),
+                        engine="native") == data
+assert backend.get("native").crc32(data) == zlib.crc32(data)
+with tempfile.TemporaryDirectory() as tmp:
+    src, pz, back = (os.path.join(tmp, n) for n in ("s", "s.pgz", "back"))
+    open(src, "wb").write(data)
+    assert cli.main(["-i", src, "-o", pz, "--engine", "native",
+                     "pgzf-encode"]) == 0
+    assert cli.main(["-i", pz, "-o", back, "--engine", "native",
+                     "pgzf-decode"]) == 0
+    assert open(back, "rb").read() == data
+timer = StageTimer()
+with timer.stage("x"):
+    pass
+assert timer.report().startswith("x ")
 blocked = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "libflate_tpu")]
 assert not blocked, blocked
@@ -266,8 +291,10 @@ def test_imports_and_runs_with_jax_blocked(small):
     round trip on "cpu", a sync-flushed zlib stream on "serial",
     ``MultiDecoder`` on a file-like source), the chunked gzip decoder, the
     public LZ77 API, ``Finish`` and the CLI (``gzip-encode`` and a
-    ``--stream`` ``gzip-decode`` on "cpu" and "serial") with both JAX and
-    the reference package blocked."""
+    ``--stream`` ``gzip-decode`` on "cpu" and "serial"), the native engine
+    (pgzf's native encode and both native decode routes, the gzip
+    container and a CLI round trip on it) and the stage timer, with both
+    JAX and the reference package blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
