@@ -23,6 +23,9 @@ Phases, each of which raises on failure (exit code != 0):
    gzip is the oracle; the host staging time is printed;
 4. each decode kernel against its plain PyTorch version on the card, at
    the shard's own shapes: tokens, (src, lit) and bytes must be identical;
+   the rank kernel's inputs and outputs are kept on the host, and after
+   5d, 5g, 8, 9's timings and 9's launches alone the run fails, naming
+   the phase, if any of them changed (a launch wrote outside its outputs);
    4b. the speculative decode's four kernels against their plain versions
    on the first group (128 members) of the shard with its LS index
    stripped (``strip_sync_index``), at the main path's shapes, and
@@ -44,9 +47,12 @@ Phases, each of which raises on failure (exit code != 0):
    against its plain version, all five outputs bit-identical, on
    ``decode_hard_cases`` (a table hole, an incomplete code, the fixed
    code's 286 / 287, an empty final block, streams cut at max_tokens,
-   start bits off the word, random words under any-int32 tables) and on
-   64 members of the generic shard (the 64 MiB as 1024 LF-indexed
-   members of zlib level-9 bodies) at full width;
+   start bits off the word, random words under any-int32 tables, tables
+   past the kernel's on-chip subtable area) and on 64 members of the
+   generic shard (the 64 MiB as 1024 LF-indexed members of zlib level-9
+   bodies) at full width; its ``kernel_info`` (no spills, at least 8
+   streams an SM); how many of the 1024 members' tables pass the
+   kernel's on-chip subtable slots;
    5e. the sync kernel's debug-checks form against its plain version on
    the decode shard (no mark, the default kernel's tokens) and on the
    shard with its first LS index poisoned (``poison_ls``: marked as the
@@ -106,9 +112,12 @@ Phases, each of which raises on failure (exit code != 0):
    32-byte sectors its visits touch) and half marks; the
    sync, speculative and foreign decode chains, the chains of the three
    encode modes; ``decode_symbols`` at 1024 generic members, alone, with
-   its bytes bound and its latency bound (the longest stream's dependent
-   table loads times one dependent L2 load, measured by a one-thread
-   chase); the debug form) and on the host clock (the end-to-end calls, host staging
+   its bytes bound (each stream's tables read once) and its latency
+   bounds (the longest stream's dependent table loads times one dependent
+   shared load, this design's, and times one dependent L2 load, each
+   measured by a one-thread chase), its ``kernel_info``; ``chain_entries``'
+   latency bound (the longest orbit's entered chunks times a dependent L2
+   load); the debug form) and on the host clock (the end-to-end calls, host staging
    and the foreign path's host token decode split out), each with the
    card's name and power limit.
 
@@ -127,7 +136,8 @@ Phases, each of which raises on failure (exit code != 0):
    ``token_fields``, the parse kernels once each), read back by zlib and
    by ``deflate.decompress(engine="cuda")`` (128 ``decode_symbols``
    launches), and ``decode_symbols`` on the stream's first block, at the
-   token budget ``inflate_device`` gives it, against its plain version;
+   token budget ``inflate_device`` gives it, against its plain version
+   (timed by the host clock and by CUDA events, wrapper and launch);
    (10d) the 64 MiB through the sort branch, counted; (10e)
    ``gzip.compress`` / ``zlib.compress`` of 8 MiB and the engine's
    ``crc32`` / ``adler32`` of 64 MiB against the standard library; (10f)
@@ -416,7 +426,63 @@ def decode_hard_cases():
     cases["random words, any-int32 tables, table_idx"] = (
         rnd, np.array([0, 31, 600], np.int32), None, None,
         any_tabs + (np.array([1, 0, 1], np.int32),), 300, 100)
+    cases.update(_past_subtable_cases())
     return cases
+
+
+def _past_subtable_cases():
+    """Two ``decode_hard_cases`` entries whose tables overflow the
+    kernel's on-chip subtable area (``deflate_decode.COMPACT``).  A
+    complete litlen code whose literals 0-199 take 11 bits (more
+    non-uniform litlen prefixes than the slots) with 28 distance codes of
+    10 bits (within the distance slots), over 700 random tokens and the
+    EOB, from bit 0 and bit 21; and any-int32 tables with no zero width
+    (every prefix non-uniform) under random words, which run to the step
+    budget and past the row's end."""
+    import numpy as np
+    from libflate_tpu_torch.serial.huffman import canonical_codes, \
+        reverse_bits
+    from libflate_tpu_torch.spec import constants as C
+    rng = np.random.default_rng(17)
+    lit = np.zeros(288, np.int32)
+    lit[:200], lit[200:240], lit[240:265], lit[265:286] = 11, 6, 7, 8
+    dist = np.zeros(30, np.int32)
+    dist[:28], dist[28], dist[29] = 10, 1, 2
+    lcodes, dcodes = canonical_codes(lit), canonical_codes(dist)
+
+    def code(codes, lens, sym):
+        return reverse_bits(int(codes[sym]), int(lens[sym])), int(lens[sym])
+
+    def extra(n_bits):
+        return int(rng.integers(0, 1 << n_bits)), n_bits
+
+    rows = []
+    for shift in (0, 21):
+        fields = []
+        for _ in range(700):
+            if rng.random() < 0.7:
+                fields.append(code(lcodes, lit, int(rng.integers(0, 256))))
+                continue
+            li, ds = int(rng.integers(0, 29)), int(rng.integers(0, 30))
+            fields += [code(lcodes, lit, 257 + li),
+                       extra(int(C.LENGTH_EXTRA[li])),
+                       code(dcodes, dist, ds), extra(int(C.DIST_EXTRA[ds]))]
+        fields.append(code(lcodes, lit, 256))
+        rows.append(_bit_words(fields, shift)[0])
+    words = np.zeros((2, max(len(r) for r in rows)), np.int32)
+    for i, r in enumerate(rows):
+        words[i, :len(r)] = r
+    wild = tuple(rng.integers(-2**31, 2**31 - 1, (2, 1 << 15),
+                              dtype=np.int64).astype(np.int32) | 1
+                 for _ in range(2))
+    rnd = rng.integers(-2**31, 2**31 - 1, (2, 200), dtype=np.int64).astype(
+        np.int32)
+    return {
+        "past the on-chip subtables: 11-bit literal codes":
+            (words, np.array([0, 21], np.int32), np.stack([lit, lit]),
+             np.stack([dist, dist]), None, 1000, 256),
+        "every prefix non-uniform: any-int32 tables, no zero width":
+            (rnd, np.array([3, 40], np.int32), None, None, wild, 500, 128)}
 
 
 def first_block_decode_args(stream: bytes, dev):
@@ -707,6 +773,20 @@ def main() -> None:
         raise AssertionError(f"a kernel disagrees with its plain version: "
                              f"{errs}")
     del toks_plain, src_p, lit_p, out_p
+    # the rank kernel's inputs and outputs, kept on the host: the phases
+    # that follow only read them, and the check of the kernels launched
+    # alone (phase 9) compares with them, so a launch that writes outside
+    # its own outputs shows here, named by the phase it came in
+    held = [(k, t, t.cpu()) for k, t in zip(
+        ("starts", "pk", "valid", "n_out", "src", "lit"),
+        (*rk_args[:4], src, lit))]
+
+    def check_held(after: str) -> None:
+        moved = [k for k, t, h in held if not torch.equal(t.cpu(), h)]
+        if moved:
+            raise AssertionError(
+                f"phase 4's rank {', '.join(moved)} changed by {after}: a "
+                f"launch wrote outside its outputs")
 
     # 4b. the speculative decode's kernels against their plain versions on
     # the first group (128 members) of the shard with its LS index
@@ -939,9 +1019,26 @@ def main() -> None:
     if ds_err or bool(got[4].any()):
         raise AssertionError("decode_symbols disagrees with its plain "
                              "version or failed on a generic member")
-    log(f"inflate.cu decode_symbols: {json.dumps(deflate_decode.kernel_info())}"
-        f" [{card_line}]")
+    ds_info = deflate_decode.kernel_info()
+    log(f"inflate.cu decode_symbols: {json.dumps(ds_info)} [{card_line}]")
+    if ds_info["spill_bytes"] or ds_info["streams_per_sm"] < 8:
+        raise AssertionError(f"decode_symbols: {ds_info}")
+    # the kernel's on-chip tables (the card tests hold its build to the
+    # plain model): how many prefixes of the 1024 members' tables need a
+    # subtable, and how many tables pass the slots
+    for tab, t_ in (("lit", g_lt), ("dist", g_dt)):
+        root_bits, slot_cap = deflate_decode.COMPACT[tab]
+        ext = deflate_decode.merged_entries_plain(t_, tab).view(
+            t_.shape[0], -1, 1 << root_bits)
+        n_nonu = (ext != ext[:, :1]).any(dim=1).sum(dim=1)
+        log(f"compact {tab} tables of the {t_.shape[0]} generic members: "
+            f"non-uniform prefixes max {int(n_nonu.max())}, mean "
+            f"{float(n_nonu.double().mean()):.2f}, "
+            f"{int((n_nonu > slot_cap).sum())} tables past the {slot_cap} "
+            f"slots")
+        del ext, n_nonu
     del got, want, sub
+    check_held("phase 5d (decode_symbols)")
 
     # 5e. the sync kernel's debug-checks form against its plain version on
     # the decode shard: no mark on the clean stream, the default kernel's
@@ -1109,6 +1206,7 @@ def main() -> None:
             f"bytes equal to zlib, {deflate_decode.decode_symbols.launches} "
             f"blocks through decode_symbols, end bit {res.end_bit}, "
             f"{took * 1e3:.2f} ms [{card_line}]")
+    check_held("phases 4b-5g (the decode paths)")
 
     # 6. encode kernels against their plain versions, first batch
     data = oracle
@@ -1335,6 +1433,8 @@ def main() -> None:
             f"{matcher} matcher, {options} -> {len(ref)} bytes, "
             f"byte-identical to the reference")
 
+    check_held("phases 6-8 (the encode paths)")
+
     # 9. timing
     n_dec = len(oracle)
     torch.cuda.reset_peak_memory_stats()
@@ -1496,12 +1596,13 @@ def main() -> None:
     g2_flat_tabs = [t_.view(g2_b, -1) for t_ in g2_tabs]
     # decode_symbols at the generic branch's shapes: the stream words from
     # each start word to one past the end word, the start bits, every
-    # output once; the tables' sectors the lookups touch are not counted
+    # output once, and each stream's table pair read once (the design
+    # builds its on-chip tables from them)
     ds_out = deflate_decode.decode_symbols(*ds_args)
     torch.cuda.synchronize()
     ds_bytes = (int((((ds_out[3].to(torch.int64) >> 5)
                       - (ds_args[1].to(torch.int64) >> 5) + 2) * 4).sum())
-                + nbytes(ds_args[1], *ds_out))
+                + nbytes(ds_args[1], *ds_out, *ds_args[2:4]))
     rows.append(
         (kname(deflate_decode.decode_symbols),
          "libflate_tpu_torch/csrc/inflate.cu",
@@ -1532,22 +1633,26 @@ def main() -> None:
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
             f"[{card_line}]")
     row = {r["name"]: r for r in summary}
-    # decode_symbols' latency bound: the longest stream's chain of
+    # decode_symbols' latency bounds: the longest stream's chain of
     # dependent table loads (a litlen entry a token, a distance entry a
-    # match, the EOB's entry) times the latency of one dependent L2 load,
-    # measured by one thread chasing a random cycle of 2^22 int32 (16 MiB,
-    # inside the L2) with L2-only loads
-    chase = torch.randperm(1 << 22, device=dev)
-    chase_next = torch.empty(1 << 22, dtype=torch.int32, device=dev)
-    chase_next[chase] = torch.roll(chase, -1).to(torch.int32)
-    chase_sink = torch.zeros(1, dtype=torch.int32, device=dev)
-    hops = 1 << 20
-    ns_hop = cuda_ms(lambda: _build.launch(
-        "lf_load_chase", chase_next.data_ptr(), hops,
-        chase_sink.data_ptr()), 3) * 1e6 / hops
+    # match, the EOB's entry) times the latency of one dependent load:
+    # in L2 (the first design's tables), measured by one thread chasing a
+    # random cycle of 2^22 int32 (16 MiB, inside the L2) with L2-only
+    # loads; in shared memory (this design's), by one thread chasing a
+    # random cycle of 4096 int32 staged there
+    def chase_ns(entry: str, n: int, hops: int) -> float:
+        order = torch.randperm(n, device=dev)
+        nxt = torch.empty(n, dtype=torch.int32, device=dev)
+        nxt[order] = torch.roll(order, -1).to(torch.int32)
+        sink = torch.zeros(1, dtype=torch.int32, device=dev)
+        return cuda_ms(lambda: _build.launch(
+            entry, nxt.data_ptr(), hops, sink.data_ptr()), 3) * 1e6 / hops
+    ns_hop = chase_ns("lf_load_chase", 1 << 22, 1 << 20)
+    ns_smem = chase_ns("lf_smem_chase", 4096, 1 << 22)
     ds_loads = int((ds_out[2].to(torch.int64)
                     + (ds_out[1] > 0).sum(dim=1) + 1).max())
     ds_lat_ms = ds_loads * ns_hop / 1e6
+    ds_smem_ms = ds_loads * ns_smem / 1e6
     ds_w, ds_sb, ds_lt, ds_dt = (x.contiguous() for x in ds_args[:4])
     ds_a = torch.zeros_like(ds_out[0])
     ds_bb = torch.zeros_like(ds_out[1])
@@ -1560,14 +1665,35 @@ def main() -> None:
         ds_a.data_ptr(), ds_bb.data_ptr(), ds_n.data_ptr(), ds_e.data_ptr(),
         ds_r.data_ptr())], 48)
     dsr = row[kname(deflate_decode.decode_symbols)]
+    half = "reaches" if ds_alone <= 2 * ds_smem_ms else "misses"
     log(f"decode_symbols at {ds_w.shape[0]} members: kernel "
         f"{dsr['ms']:.4f} ms, alone {ds_alone:.4f} ms (48 launches), bytes "
-        f"bound {dsr['bound_ms']:.4f} ms ({ds_bytes} bytes, tables not "
-        f"counted), latency bound {ds_lat_ms:.4f} ms (longest stream: "
-        f"{ds_loads} dependent table loads x {ns_hop:.2f} ns a dependent L2 "
-        f"load, measured); tokens {int(ds_out[2].sum())}, longest stream "
-        f"{int(ds_out[2].max())} [{card_line}]")
-    del chase, chase_next, ds_out, ds_a, ds_bb
+        f"bound {dsr['bound_ms']:.4f} ms ({ds_bytes} bytes, each stream's "
+        f"table pair read once), latency bounds (longest stream: "
+        f"{ds_loads} dependent table loads) {ds_smem_ms:.4f} ms in shared "
+        f"memory ({ns_smem:.2f} ns a dependent shared load, measured; the "
+        f"design's bound: alone it {half} half of it) and {ds_lat_ms:.4f} "
+        f"ms in L2 ({ns_hop:.2f} ns a dependent L2 load, measured); tokens "
+        f"{int(ds_out[2].sum())}, longest stream {int(ds_out[2].max())}; "
+        f"{json.dumps(deflate_decode.kernel_info())} [{card_line}]")
+    # chain_entries' latency bound: each member's orbit takes one
+    # dependent exit load a chunk it enters; the longest member's count
+    # times a dependent L2 load
+    ce_loads = int(((s_ent.to(torch.int64) >> 9) == torch.arange(
+        s_ent.shape[1], device=dev)[None, :]).sum(dim=1).max())
+    ce_lat_ms = ce_loads * ns_hop / 1e6
+    cer = row[kname(deflate_decode.chain_entries)]
+    ce_alone = cuda_ms_many([lambda: deflate_decode.chain_entries(
+        s_ex, st["starts"])], 48)
+    log(f"chain_entries latency bound {ce_lat_ms:.4f} ms (longest member's "
+        f"orbit enters {ce_loads} of {s_ent.shape[1]} chunks x "
+        f"{ns_hop:.2f} ns a dependent L2 load); kernel {cer['ms']:.4f} ms, "
+        f"alone {ce_alone:.4f} ms (48 launches), bytes bound "
+        f"{cer['bound_ms']:.4f} ms; alone it "
+        f"{'reaches' if ce_alone <= 2 * ce_lat_ms else 'misses'} half of "
+        f"the latency bound [{card_line}]")
+    del ds_out, ds_a, ds_bb
+    check_held("phase 9's timed launches")
     # the search half of rank_emit_src alone: every position searched in
     # the sentinel starts; not library_ms, since it computes neither src
     # nor lit, and the port never calls it
@@ -1756,24 +1882,34 @@ def main() -> None:
     alone_ms = {k: cuda_ms_many(fns, 12 * COLD_COPIES)
                 for k, fns in alone.items()}
     torch.cuda.synchronize()
-    if not (torch.equal(src_a, src) and torch.equal(lit_a, lit)
-            and torch.equal(words_a, words) and torch.equal(toks_a, toks)
-            and torch.equal(bins_a, bins) and torch.equal(out_a, out)
-            and torch.equal(out_g_a, out[:n_grp])
-            and torch.equal(hcand_a, hcand_raw)
-            and torch.equal(walk_a, s_emit)
-            and torch.equal(dec_tok_a, s_tok)
-            and torch.equal(dec_nxt_a, s_nxt)
-            and torch.equal(exits_a, s_ex)
-            and all(torch.equal(x, y) for x, y in zip(fields_a, fv))
-            and all(torch.equal(x, y) for x, y in zip(pm_fields_a, pm_fv))
-            and all(torch.equal(x, y) for x, y in zip(g2_out_a, g2))
-            and all(torch.equal(lcp_outs[k], o_)
-                    for k, o_, _a, _k in lcp_calls)):
-        raise AssertionError("a kernel launched alone gave other outputs")
+    same = {"rank": torch.equal(src_a, src) and torch.equal(lit_a, lit),
+            "pack": torch.equal(words_a, words),
+            "sync_decode": torch.equal(toks_a, toks),
+            "token_hist": torch.equal(bins_a, bins),
+            "resolve": torch.equal(out_a, out),
+            "resolve 128": torch.equal(out_g_a, out[:n_grp]),
+            "hash": torch.equal(hcand_a, hcand_raw),
+            "spec walk": torch.equal(walk_a, s_emit),
+            "spec decode": (torch.equal(dec_tok_a, s_tok)
+                            and torch.equal(dec_nxt_a, s_nxt)),
+            "spec exits": torch.equal(exits_a, s_ex),
+            "token_fields": all(torch.equal(x, y)
+                                for x, y in zip(fields_a, fv)),
+            "token_fields per member": all(
+                torch.equal(x, y) for x, y in zip(pm_fields_a, pm_fv)),
+            "gather_two": all(torch.equal(x, y)
+                              for x, y in zip(g2_out_a, g2))}
+    same.update({f"match_lengths {k}": torch.equal(lcp_outs[k], o_)
+                 for k, o_, _a, _k in lcp_calls})
+    if not all(same.values()):
+        check_held("the kernels launched alone")
+        raise AssertionError("a kernel launched alone gave other outputs: "
+                             + ", ".join(k for k, v in same.items() if not v)
+                             + " (phase 4's rank inputs and outputs held)")
     log(f"launched alone, {12 * COLD_COPIES} back to back, ms per launch: "
         + ", ".join(f"{k} {v:.4f}" for k, v in alone_ms.items())
         + f" [{card_line}]")
+    held.clear()
     del src_a, lit_a, words_a, rk_copies, pk_copies, toks_a, sd_copies
     del hs_copies, rs_copies, rg_copies, hh_copies, out_a, out_g_a, hcand_a
     del lc_copies, wk_copies, walk_a, lcp_outs, sw_copies
@@ -2169,7 +2305,7 @@ def generic_engine(dev, card_line: str, data: bytes, blocks, nv, hcand,
     fields' error to ``row`` / ``errs``."""
     import numpy as np
 
-    from libflate_tpu_torch import backend
+    from libflate_tpu_torch import _build, backend
     from libflate_tpu_torch.formats import deflate as fdeflate
     from libflate_tpu_torch.formats import gzip as fgzip
     from libflate_tpu_torch.formats import pgzf
@@ -2317,11 +2453,26 @@ def generic_engine(dev, card_line: str, data: bytes, blocks, nv, hcand,
     ds_err = max(max_abs_err(x, y) for x, y in zip(ds_k, ds_p))
     errs[kname(ds_)] = max(errs[kname(ds_)], ds_err)
     row[kname(ds_)]["max_abs_err"] = errs[kname(ds_)]
+    # CUDA events: the wrapper (its two zeroed 64 MiB outputs) and the
+    # launch alone on the same outputs
+    ds_ev_ms = cuda_ms(lambda: ds_(*ds_in, ds_mt), 3)
+    ds_o = [torch.zeros_like(ds_k[0]), torch.zeros_like(ds_k[1]),
+            torch.empty_like(ds_k[2]), torch.empty_like(ds_k[3]),
+            torch.empty_like(ds_k[4])]
+    ds_in_c = [x.contiguous() for x in ds_in]
+    ds_launch_ms = cuda_ms(lambda: _build.launch(
+        "lf_decode_symbols", ds_in_c[0].data_ptr(), ds_in_c[0].shape[1],
+        ds_in_c[1].data_ptr(), ds_in_c[2].data_ptr(), ds_in_c[3].data_ptr(),
+        0, 1, ds_mt, deflate_decode._decode_steps(
+            ds_mt, deflate_decode.DECODE_CHUNK),
+        *(x.data_ptr() for x in ds_o)), 3)
     log(f"decode_symbols on the 8 MiB stream's first block at the budget "
         f"inflate_device gives it ({ds_mt} token slots, {int(ds_k[2][0])} "
         f"tokens, err {bool(ds_k[4][0])}): max_abs_err {ds_err}; kernel "
-        f"{ds_k_ms:.2f} ms, plain {ds_p_ms:.2f} ms (host clock, one call) "
-        f"[{card_line}]")
+        f"{ds_k_ms:.2f} ms, plain {ds_p_ms:.2f} ms (host clock, one call); "
+        f"CUDA events, median of 3: wrapper {ds_ev_ms:.4f} ms, launch "
+        f"alone {ds_launch_ms:.4f} ms [{card_line}]")
+    del ds_o, ds_in_c
     if ds_err or bool(ds_k[4][0]):
         raise AssertionError("decode_symbols disagrees with its plain "
                              "version on the 8 MiB stream's first block")

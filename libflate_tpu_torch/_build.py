@@ -63,7 +63,9 @@ _SIGNATURES = {
     "lf_spec_exits_info": "p",
     "lf_decode_symbols": "pippppiiqpppppp",
     "lf_decode_symbols_info": "p",
+    "lf_decode_compact_tables": "ppiipp",
     "lf_load_chase": "pqpp",
+    "lf_smem_chase": "pqpp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 

@@ -9,11 +9,12 @@ chunk.  :func:`tokens_from_emit_packed` compacts the walk's emit rows
 into each member's token row with a cumsum and a scatter.
 
 The generic engine's decode: :func:`decode_symbols` (``:81-197``, an XLA
-scan in the reference) is a kernel here (``csrc/inflate.cu``), a thread
-a stream; :func:`expand_tokens_device` (``:201-276``) is torch glue
-(pointer doubling with the reference's early stop); and
-:func:`inflate_device` (``:495-593``) decodes a raw DEFLATE stream block
-by block with them.  Member-major ``(B, ...)`` throughout.
+scan in the reference) is a kernel here (``csrc/inflate.cu``), a warp a
+stream with the stream's tables in shared memory in a compact form that
+:func:`compact_tables_plain` models; :func:`expand_tokens_device`
+(``:201-276``) is torch glue (pointer doubling with the reference's early
+stop); and :func:`inflate_device` (``:495-593``) decodes a raw DEFLATE
+stream block by block with them.  Member-major ``(B, ...)`` throughout.
 """
 from __future__ import annotations
 
@@ -186,6 +187,81 @@ def decode_symbols_plain(words, start_bit, lit_table, dist_table,
     return a_out, b_out, n_tok, pos.to(torch.int32), err | ~done
 
 
+#: the kernel's on-chip tables (``csrc/inflate.cu``): kind -> (root bits,
+#: subtable slots); the card tests hold the kernel's own build to it
+COMPACT = {"lit": (10, 80), "dist": (9, 16)}
+#: a root entry at or above it is ``SUBTABLE | slot``
+SUBTABLE = 1 << 30
+#: a merged litlen entry above it is a length: ``LEN_MARK | ...``
+MAX_LITERAL = (256 << 4) | 15
+LEN_MARK = 1 << 20
+
+
+def merged_entries_plain(table: torch.Tensor, kind: str) -> torch.Tensor:
+    """``table``'s entries as the kernel keeps them: what its decode reads
+    of an entry, and nothing else.  A litlen entry at or below
+    ``MAX_LITERAL`` (a literal, the EOB, any negative value) stays; a
+    length entry becomes ``LEN_MARK | base << 7 | extra << 4 | width`` (its symbol's row,
+    clipped to [0, 28] as the decode clips it); a distance entry
+    ``base << 8 | extra << 4 | width`` (symbol clipped to [0, 29])."""
+    lb, _lmask, le, db, _dmask, de = _decode_rows(table.device)
+    t = table.to(torch.int64)
+    if kind == "lit":
+        li = ((t >> 4) - 257).clamp(0, 28)
+        merged = LEN_MARK | lb[li] << 7 | le[li] << 4 | (t & 15)
+        return torch.where(t > MAX_LITERAL, merged, t).to(torch.int32)
+    ds = (t >> 4).clamp(0, 29)
+    return (db[ds] << 8 | de[ds] << 4 | (t & 15)).to(torch.int32)
+
+
+def compact_tables_plain(table: torch.Tensor, kind: str) -> dict:
+    """The compact form the kernel builds in shared memory from one
+    2^15-entry table (``kind`` "lit" or "dist"), laid out as it lays it
+    out; for tests.
+
+    Returns ``root`` (2^R int32: the merged entry of a uniform prefix,
+    whose 2^(15-R) extensions all hold it, else ``SUBTABLE | slot``, slots
+    by ascending prefix), ``sub`` (min(n, cap), 2^(15-R)) int32 (slot j:
+    the merged entries ``hi << R | prefix`` of its prefix) and ``n`` (the
+    non-uniform prefixes; those past the cap read the table itself).
+    """
+    root_bits, cap = COMPACT[kind]
+    m = merged_entries_plain(table, kind).view(1 << (15 - root_bits),
+                                               1 << root_bits)
+    nonuniform = (m != m[:1]).any(dim=0)
+    slot = torch.cumsum(nonuniform, 0) - 1
+    root = torch.where(nonuniform, SUBTABLE + slot, m[0].to(torch.int64))
+    prefixes = torch.nonzero(nonuniform)[:, 0]
+    return {"root": root.to(torch.int32),
+            "sub": m[:, prefixes[:cap]].T.contiguous(),
+            "n": len(prefixes)}
+
+
+def compact_lookup_plain(layout: dict, table: torch.Tensor, kind: str,
+                         idx: torch.Tensor) -> torch.Tensor:
+    """The kernel's lookup of 15-bit peeks ``idx`` through ``layout``
+    (:func:`compact_tables_plain` of ``table``): the root, its subtable,
+    or past the subtable area the merged entry of ``table`` itself."""
+    root_bits, cap = COMPACT[kind]
+    idx = idx.to(torch.int64)
+    v = layout["root"][idx & ((1 << root_bits) - 1)].to(torch.int64)
+    slot = v - SUBTABLE
+    sub = layout["sub"]
+    if sub.shape[0]:
+        on_chip = sub[slot.clamp(0, sub.shape[0] - 1), idx >> root_bits]
+    else:
+        on_chip = torch.zeros_like(v)
+    past = merged_entries_plain(table, kind).to(torch.int64)[idx]
+    return torch.where(slot < 0, v, torch.where(slot < cap, on_chip.to(
+        torch.int64), past)).to(torch.int32)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data is not 16-byte aligned (the
+    kernel's table build reads int4)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def decode_symbols(words: torch.Tensor, start_bit: torch.Tensor,
                    lit_table: torch.Tensor, dist_table: torch.Tensor,
                    max_tokens: int, chunk: int = DECODE_CHUNK,
@@ -247,6 +323,7 @@ def decode_symbols(words: torch.Tensor, start_bit: torch.Tensor,
     end_bit = torch.empty_like(n_tok)
     err = torch.empty(bsz, dtype=torch.bool, device=dev)
     w, sb, lt, dt = args
+    lt, dt = _aligned(lt), _aligned(dt)
     _build.launch("lf_decode_symbols", w.data_ptr(), w.shape[1],
                   sb.data_ptr(), lt.data_ptr(), dt.data_ptr(),
                   0 if tidx is None else tidx.data_ptr(), bsz, max_tokens,
@@ -261,13 +338,17 @@ decode_symbols.launches = 0
 
 
 def kernel_info() -> dict:
-    """How ``csrc/inflate.cu``'s decode compiled: registers, static
-    shared and spill bytes, threads per block."""
-    out = (ctypes.c_int * 4)()
+    """How ``csrc/inflate.cu``'s decode compiled and launches: registers,
+    static shared and spill bytes and the most threads a block (its
+    launch bounds: a warp, one stream), as the runtime reports them; the
+    dynamic shared bytes a launch asks for; resident streams an SM, from
+    the occupancy API."""
+    out = (ctypes.c_int * 6)()
     err = _build.load().lf_decode_symbols_info(out)
     if err != 0:
         raise RuntimeError(f"lf_decode_symbols_info failed with error {err}")
-    return dict(zip(("regs", "static_smem", "spill_bytes", "threads"), out))
+    return dict(zip(("regs", "static_smem", "spill_bytes", "threads",
+                     "dynamic_smem", "streams_per_sm"), out))
 
 
 def expand_tokens_device(a: torch.Tensor, b: torch.Tensor,

@@ -1680,9 +1680,254 @@ def test_decode_symbols_kernel_at_member_width(dev):
     assert not got[4].any()
 
 
+def _compact_row_words():
+    """The words of one row of ``lf_decode_compact_tables``' dump, from
+    ``COMPACT``: each kind's root and subtable area, then the two
+    non-uniform counts."""
+    return sum((1 << r) + (cap << (15 - r))
+               for r, cap in deflate_decode.COMPACT.values()) + 2
+
+
 def test_decode_symbols_kernel_info(dev):
+    """A warp a stream, the compact tables (``COMPACT``) on chip, no
+    spills, and at least 8 streams an SM: the 1024 generic members fit
+    one wave on 132 SMs."""
     info = deflate_decode.kernel_info()
-    assert info["spill_bytes"] == 0 and info["threads"] == 64
+    assert info["spill_bytes"] == 0 and info["threads"] == 32
+    assert info["dynamic_smem"] == 0
+    assert info["static_smem"] >= 4 * (_compact_row_words() - 2)
+    assert info["streams_per_sm"] >= 8
+    assert info["regs"] * 32 * info["streams_per_sm"] <= 65536
+    assert ((info["static_smem"] + info["dynamic_smem"])
+            * info["streams_per_sm"] <= 228 * 1024)
+
+
+def _compact_dump(lt, dt):
+    """The kernel's own build of each (T, 2^15) table pair, as a list of
+    T ``{"lit": layout, "dist": layout}`` in ``compact_tables_plain``'s
+    form (subtables cut to the slots in use).  The dump refuses a row
+    width other than the kernel's, so a geometry apart from ``COMPACT``
+    fails here; two guard rows past the T rows must stay as written."""
+    from libflate_tpu_torch import _build
+    lt, dt = lt.contiguous(), dt.contiguous()
+    assert lt.data_ptr() % 16 == 0 and dt.data_ptr() % 16 == 0
+    n, w = lt.shape[0], _compact_row_words()
+    out = torch.full((n + 2, w), -7, dtype=torch.int32, device=lt.device)
+    _build.launch("lf_decode_compact_tables", lt.data_ptr(), dt.data_ptr(),
+                  n, w, out.data_ptr())
+    out = out.cpu()
+    assert (out[n:] == -7).all()
+    layouts = []
+    for row in out[:n]:
+        layout, at = {}, 0
+        for kind, (r, cap) in deflate_decode.COMPACT.items():
+            root, sub = row[at:at + (1 << r)], row[
+                at + (1 << r):at + (1 << r) + (cap << (15 - r))]
+            layout[kind] = {"root": root, "sub": sub.view(cap, -1)}
+            at += (1 << r) + (cap << (15 - r))
+        for k, kind in enumerate(deflate_decode.COMPACT):
+            layout[kind]["n"] = int(row[at + k])
+            cut = min(layout[kind]["n"], deflate_decode.COMPACT[kind][1])
+            layout[kind]["sub"] = layout[kind]["sub"][:cut]
+        layouts.append(layout)
+    return layouts
+
+
+def test_decode_compact_tables_dump_refuses_another_row_width(dev):
+    from libflate_tpu_torch import _build
+    t = torch.zeros((1, 1 << 15), dtype=torch.int32, device=dev)
+    out = torch.zeros((1, _compact_row_words() + 1), dtype=torch.int32,
+                      device=dev)
+    with pytest.raises(RuntimeError):
+        _build.launch("lf_decode_compact_tables", t.data_ptr(), t.data_ptr(),
+                      1, _compact_row_words() - 1, out.data_ptr())
+    assert not out.any()
+
+
+def _compact_eq(got, want):
+    for kind in ("lit", "dist"):
+        assert got[kind]["n"] == want[kind]["n"], kind
+        for part in ("root", "sub"):
+            assert torch.equal(got[kind][part].cpu(),
+                               want[kind][part].cpu()), (kind, part)
+
+
+@pytest.mark.parametrize("source", ["hard cases", "generic members",
+                                    "random int32"])
+def test_decode_compact_tables_kernel_matches_plain(dev, source):
+    """The kernel's own build of the on-chip tables (roots, subtables and
+    the non-uniform counts, also past the slots) equals the plain model's
+    layout, table by table."""
+    from libflate_tpu_torch.ops.huffman import tables_from_lengths
+    pairs = []
+    if source == "hard cases":
+        for case in decode_hard_cases().values():
+            _w, _s, lt, dt, _mt, _ch, _ti = _decode_args(case, dev)
+            pairs.append((lt, dt))
+    elif source == "generic members":
+        plain = gzip.decompress((DATA / "pgzf_sync_zipf_2m.pgz").read_bytes())
+        shard = generic_shard(plain)
+        from libflate_tpu_torch.serial.deflate import parse_block_headers
+        lit, dist, _st, _fl = parse_block_headers(
+            [shard[r.body:r.end - 8] for r in pgzf.index_members(shard)])
+        pairs.append(tables_from_lengths(torch.from_numpy(lit).to(dev),
+                                         torch.from_numpy(dist).to(dev)))
+    else:
+        g = np.random.default_rng(31)
+        pairs.append(tuple(torch.from_numpy(g.integers(
+            -2**31, 2**31 - 1, (5, 1 << 15), dtype=np.int64).astype(
+                np.int32)).to(dev) for _ in range(2)))
+    for lt, dt in pairs:
+        got = _compact_dump(lt, dt)
+        assert len(got) == lt.shape[0]
+        for g_, lt_, dt_ in zip(got, lt.cpu(), dt.cpu()):
+            _compact_eq(g_, {
+                "lit": deflate_decode.compact_tables_plain(lt_, "lit"),
+                "dist": deflate_decode.compact_tables_plain(dt_, "dist")})
+        if source == "random int32":
+            assert all(x[k]["n"] == 1 << r
+                       for x in got
+                       for k, (r, _cap) in deflate_decode.COMPACT.items())
+
+
+@pytest.mark.parametrize("table_idx", [False, True])
+def test_decode_symbols_kernel_past_the_subtables(dev, table_idx):
+    """Every root prefix non-uniform: 8 streams of random words under
+    any-int32 tables with no zero width, 4,000 tokens each, so that the
+    prefixes in the subtable slots (``COMPACT``) read them on chip and the
+    rest the tables in device memory; with a table index, 3 table pairs
+    shared by the 8 streams."""
+    g = np.random.default_rng(37)
+    n_tab = 3 if table_idx else 8
+    lt, dt = (torch.from_numpy(g.integers(
+        -2**31, 2**31 - 1, (n_tab, 1 << 15), dtype=np.int64).astype(
+            np.int32) | 1).to(dev) for _ in range(2))
+    words = torch.from_numpy(g.integers(
+        -2**31, 2**31 - 1, (8, 3000), dtype=np.int64).astype(
+            np.int32)).to(dev)
+    starts = torch.from_numpy(g.integers(0, 3000 * 32, 8).astype(
+        np.int32)).to(dev)
+    tidx = (torch.from_numpy(g.integers(0, n_tab, 8).astype(np.int32))
+            .to(dev) if table_idx else None)
+    args = (words, starts, lt, dt, 4000, 1024, tidx)
+    before = deflate_decode.decode_symbols.launches
+    got = deflate_decode.decode_symbols(*args)
+    assert deflate_decode.decode_symbols.launches == before + 1
+    want = deflate_decode.decode_symbols_plain(*args)
+    for g_, w_ in zip(got, want):
+        _eq(g_, w_)
+    assert (got[2] == 4096).all() and got[4].all()
+
+
+@pytest.mark.parametrize("table_idx", [False, True])
+def test_decode_symbols_kernel_1024_streams(dev, table_idx):
+    """1024 streams in one launch (the generic branch's member count):
+    the hard cases' zlib bodies, each of the 4 repeated 256 times, with a
+    table pair a stream or the 4 pairs named by a table index."""
+    words, starts, lt, dt, max_tokens, chunk, _ti = _decode_args(
+        decode_hard_cases()["zlib bodies"], dev)
+    rep = torch.arange(1024, device=dev) % 4
+    if table_idx:
+        tidx = rep.to(torch.int32)
+    else:
+        lt, dt, tidx = lt[rep].contiguous(), dt[rep].contiguous(), None
+    args = (words[rep], starts[rep], lt, dt, max_tokens, chunk, tidx)
+    before = deflate_decode.decode_symbols.launches
+    got = deflate_decode.decode_symbols(*args)
+    assert deflate_decode.decode_symbols.launches == before + 1
+    want = deflate_decode.decode_symbols_plain(*args)
+    for g_, w_ in zip(got, want):
+        _eq(g_, w_)
+    assert not got[4].any() and (got[2][:4] > 1000).all()
+
+
+def _guarded(shape, dtype, dev, fill):
+    """A zeroed tensor of ``shape`` inside a buffer whose 4 KiB on each
+    side hold ``fill``; returns (tensor, buffer, pad elements)."""
+    n = int(np.prod(shape))
+    pad = 4096 // torch.empty((), dtype=dtype).element_size()
+    buf = torch.full((pad + n + pad,), fill, dtype=dtype, device=dev)
+    buf[pad:pad + n] = 0
+    return buf[pad:pad + n].view(shape), buf, pad
+
+
+def _decode_guarded(words, starts, lt, dt, max_tokens, chunk, tidx):
+    """``lf_decode_symbols`` launched on outputs between guard zones: the
+    five outputs, and whether every guard still holds its fill."""
+    from libflate_tpu_torch import _build
+    dev, bsz = words.device, words.shape[0]
+    outs = [_guarded((bsz, max_tokens), torch.int32, dev, 0x5A5A5A5A),
+            _guarded((bsz, max_tokens), torch.int32, dev, 0x5A5A5A5A),
+            _guarded((bsz,), torch.int32, dev, 0x5A5A5A5A),
+            _guarded((bsz,), torch.int32, dev, 0x5A5A5A5A),
+            _guarded((bsz,), torch.uint8, dev, 0x5A)]
+    w, sb, lt, dt = (x.contiguous() for x in (words, starts, lt, dt))
+    assert lt.data_ptr() % 16 == 0 and dt.data_ptr() % 16 == 0
+    _build.launch("lf_decode_symbols", w.data_ptr(), w.shape[1],
+                  sb.data_ptr(), lt.data_ptr(), dt.data_ptr(),
+                  0 if tidx is None else tidx.contiguous().data_ptr(), bsz,
+                  max_tokens, deflate_decode._decode_steps(max_tokens, chunk),
+                  *(o[0].data_ptr() for o in outs))
+    torch.cuda.synchronize()
+    held = all(bool((buf[:pad] == buf[0]).all()
+                    and (buf[-pad:] == buf[0]).all())
+               for _o, buf, pad in outs)
+    res = [o[0] for o in outs]
+    res[4] = res[4].bool()
+    return res, held
+
+
+@pytest.mark.parametrize("case", ["hard cases", "1024 streams"])
+def test_decode_symbols_kernel_writes_only_its_outputs(dev, case):
+    """Every output between 4 KiB guard zones: after the launch the
+    zones hold what they held and the outputs equal the plain version's.
+    On each hard case (streams cut at max_tokens, run to the step budget,
+    past the subtable slots, with a table index), and on 1024 streams in
+    one launch: the zlib bodies cut at 300 tokens, and random words under
+    any-int32 tables with a table index, which stop at any step."""
+    if case == "hard cases":
+        runs = [_decode_args(c, dev) for c in decode_hard_cases().values()]
+    else:
+        words, starts, lt, dt, _mt, chunk, _ti = _decode_args(
+            decode_hard_cases()["zlib bodies"], dev)
+        rep = torch.arange(1024, device=dev) % 4
+        g = np.random.default_rng(41)
+        rnd = torch.from_numpy(g.integers(
+            -2**31, 2**31 - 1, (1024, 64), dtype=np.int64).astype(
+                np.int32)).to(dev)
+        tabs = [torch.from_numpy(g.integers(
+            -2**31, 2**31 - 1, (7, 1 << 15), dtype=np.int64).astype(
+                np.int32)).to(dev) for _ in range(2)]
+        runs = [(words[rep], starts[rep], lt, dt, 300, chunk,
+                 rep.to(torch.int32)),
+                (rnd, torch.from_numpy(g.integers(0, 64 * 32, 1024).astype(
+                    np.int32)).to(dev), tabs[0], tabs[1], 40, 16,
+                 torch.from_numpy(g.integers(0, 7, 1024).astype(
+                     np.int32)).to(dev))]
+    for args in runs:
+        got, held = _decode_guarded(*args)
+        assert held
+        want = deflate_decode.decode_symbols_plain(*args)
+        for g_, w_ in zip(got, want):
+            _eq(g_, w_)
+
+
+def test_rank_kernel_repeated_launches_agree(group):
+    """The rank kernel gives the same (src, lit) launch after launch on
+    the same inputs, 64 times, between launches of the generic decode
+    (which leaves its tables in the SMs' shared memory), each equal to
+    the plain version's."""
+    toks = sd.sync_decode(*_sd_args(group))
+    cap = group["member_cap"]
+    args = device_expand.rank_inputs(toks.view(group["bsz"], -1),
+                                     group["n_tokens"], cap)[:4] + (cap,)
+    src_p, lit_p = rank.rank_emit_src_plain(*args)
+    dec = _decode_args(decode_hard_cases()["zlib bodies"], toks.device)
+    for i in range(64):
+        if i % 8 == 0:
+            deflate_decode.decode_symbols(*dec)
+        src, lit = rank.rank_emit_src(*args)
+        assert torch.equal(src, src_p) and torch.equal(lit, lit_p), i
 
 
 def test_sync_decode_debug_kernel_matches_plain(group):

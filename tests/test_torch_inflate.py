@@ -5,13 +5,17 @@
 ``chip_smoke.decode_hard_cases`` (zlib bodies of 2-8 KiB, streams cut at
 max_tokens, start bits off the word, a table hole, an incomplete code,
 the fixed code's 286 / 287 and an empty final block, random words under
-any-int32 tables): all five outputs equal.  ``tables_from_lengths`` on
+any-int32 tables, tables past the kernel's on-chip subtable area): all
+five outputs equal.  ``compact_tables_plain``, the model of the kernel's
+on-chip tables, looked up at every one of the 2^15 indices of the hard
+cases' tables, the generic shard's and random int32 tables.  ``tables_from_lengths`` on
 dynamic, fixed, empty-distance and over-subscribed alphabets;
 ``expand_tokens_device`` with and without history, with an overflow and
 a distance past the history; ``inflate_device`` on multi-block, stored,
 fixed and corrupt streams: the same bytes and end bit, or the same
 exception type.  Every reference call runs once, in the module fixture.
 """
+import functools
 import struct
 import zlib
 
@@ -22,7 +26,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import decode_hard_cases  # noqa: E402
+from chip_smoke import decode_hard_cases, generic_shard  # noqa: E402
 from libflate_tpu_torch.ops import deflate_decode as port  # noqa: E402
 from libflate_tpu_torch.ops.huffman import tables_from_lengths  # noqa: E402
 
@@ -273,3 +277,108 @@ def test_inflate_device_cuda_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.inflate_device(_raw(b"abc"), device="cuda")
+
+
+@functools.lru_cache(maxsize=1)
+def _layout_tables():
+    """name -> [(kind, 2**15 int32 table)]: every stream's tables of each
+    hard case, four generic-shard members' and random int32 tables."""
+    import gzip
+    import pathlib
+    from libflate_tpu_torch.formats import pgzf
+    from libflate_tpu_torch.serial.deflate import parse_block_headers
+    out = {}
+    for name, case in decode_hard_cases().items():
+        lt, dt = _stream_tables(case)
+        out[name] = [(k, torch.from_numpy(np.ascontiguousarray(t)))
+                     for tabs, k in ((lt, "lit"), (dt, "dist")) for t in tabs]
+    data = pathlib.Path(__file__).parent / "data" / "pgzf_sync_zipf_2m.pgz"
+    shard = generic_shard(gzip.decompress(data.read_bytes())[:4 * 65536])
+    bodies = [shard[r.body:r.end - 8] for r in pgzf.index_members(shard)]
+    lit, dist, _s, _f = parse_block_headers(bodies)
+    lt, dt = tables_from_lengths(torch.from_numpy(lit), torch.from_numpy(dist))
+    out["generic shard"] = [(k, t) for tabs, k in ((lt, "lit"), (dt, "dist"))
+                            for t in tabs]
+    rng = np.random.default_rng(23)
+    out["random int32"] = [
+        (k, torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 1 << 15,
+                                          dtype=np.int64).astype(np.int32)))
+        for k in ("lit", "dist", "lit")]
+    return out
+
+
+def _decode_view(entries: np.ndarray, kind: str):
+    """What the decode reads of raw entries, from the RFC's rows: (width,
+    is a length, the literal / EOB symbol or the length's base and extra
+    bits) for litlen; (width, base, extra bits) for distance."""
+    from libflate_tpu_torch.spec import constants as C
+    e = entries.astype(np.int64)
+    if kind == "lit":
+        sym = e >> 4
+        li = np.clip(sym - 257, 0, 28)
+        is_len = sym > 256
+        return (e & 15, is_len, np.where(is_len, C.LENGTH_BASE[li], sym),
+                np.where(is_len, C.LENGTH_EXTRA[li], 0))
+    ds = np.clip(e >> 4, 0, 29)
+    return e & 15, C.DIST_BASE[ds], C.DIST_EXTRA[ds]
+
+
+def _merged_view(merged: np.ndarray, kind: str):
+    """The same fields read back from merged entries, as the kernel reads
+    them."""
+    v = merged.astype(np.int64)
+    if kind == "lit":
+        is_len = v > port.MAX_LITERAL
+        return (v & 15, is_len, np.where(is_len, (v >> 7) & 511, v >> 4),
+                np.where(is_len, (v >> 4) & 7, 0))
+    return v & 15, v >> 8, (v >> 4) & 15
+
+
+@pytest.mark.parametrize("name", list(decode_hard_cases())
+                         + ["generic shard", "random int32"])
+def test_compact_tables_plain_lookup_at_every_index(name):
+    """The on-chip layout model: a lookup through the root, the
+    subtables and, past the slots, the table itself gives every one of
+    the 2^15 indices the merged entry of ``table[idx]``, and the merged
+    entry keeps all the decode reads of the raw one.  Random int32 tables
+    make every prefix non-uniform."""
+    idx = torch.arange(1 << 15)
+    for kind, table in _layout_tables()[name]:
+        layout = port.compact_tables_plain(table, kind)
+        root_bits, cap = port.COMPACT[kind]
+        got = port.compact_lookup_plain(layout, table, kind, idx)
+        merged = port.merged_entries_plain(table, kind)
+        np.testing.assert_array_equal(got.numpy(), merged.numpy())
+        for g, w in zip(_merged_view(got.numpy(), kind),
+                        _decode_view(table.numpy(), kind)):
+            np.testing.assert_array_equal(g, w)
+        ext = merged.view(1 << (15 - root_bits), 1 << root_bits)
+        uniform = (ext == ext[:1]).all(dim=0)
+        assert layout["n"] == int((~uniform).sum())
+        assert layout["sub"].shape == (min(layout["n"], cap),
+                                       1 << (15 - root_bits))
+        np.testing.assert_array_equal(layout["root"][uniform].numpy(),
+                                      ext[0][uniform].numpy())
+        if name == "random int32":
+            assert layout["n"] == 1 << root_bits
+
+
+def test_past_subtable_cases_overflow_the_slots(ref):
+    """The two overflow cases reach the device-memory path: the 11-bit
+    literal code has 100 non-uniform litlen prefixes, more than the
+    slots, and 14 distance ones, within them; it decodes its 700 tokens
+    and the EOB; the any-int32 tables have every prefix non-uniform and
+    run to the step budget."""
+    tabs = _layout_tables()
+    code = "past the on-chip subtables: 11-bit literal codes"
+    wild = "every prefix non-uniform: any-int32 tables, no zero width"
+    ns = [(k, port.compact_tables_plain(t, k)["n"]) for k, t in tabs[code]]
+    assert ns == [("lit", 100), ("lit", 100), ("dist", 14), ("dist", 14)]
+    assert 100 > port.COMPACT["lit"][1] and 14 <= port.COMPACT["dist"][1]
+    for kind, t in tabs[wild]:
+        assert port.compact_tables_plain(t, kind)["n"] == \
+            1 << port.COMPACT[kind][0]
+    _a, _b, n, _e, err = ref["chunked"][code]
+    assert list(n) == [700, 700] and not err.any()
+    _a, _b, n, _e, err = ref["chunked"][wild]
+    assert list(n) == [512, 512] and err.all()
