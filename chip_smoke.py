@@ -166,14 +166,16 @@ Phases, each of which raises on failure (exit code != 0):
    flipped byte's salvage equal to the serial engine's ``.partial``;
    (11c) the serial engine on 1 MiB, ``BlockStreamer`` in 64 KiB writes
    equal to the one-shot, the chunked gzip decoder over the 8 MiB stream
-   in 4 KiB feeds; (11d) the CLI as a subprocess (``--engine cuda``:
+   in 4 KiB feeds (one timed run); (11d) the CLI as a subprocess, each
+   timed once (``--engine cuda``:
    gzip-encode, gzip-decode, pgzf-encode, pgzf-decode; ``--stream``
    gzip-encode / gzip-decode), each verified by stdlib gzip; (11e)
    ``token_hist`` on slots over all of int32 and ``rank_emit_src`` on
    ``rank_hard_cases`` (past the reference's 128-wide search), each
    against its plain version, and both on the main path's inputs again,
-   each launched 48 times; (11f) every call's host clock (median of 3)
-   and peak device memory, with the card's name and power limit.
+   each launched 48 times; (11f) every call's host clock (median of 3;
+   one run for the chunked decoder and each CLI subprocess) and peak
+   device memory, with the card's name and power limit.
 
 12. the native host engine (no kernel): ``pgzf.compress(engine=
    "native")`` and ``native.deflate_greedy`` byte-identical to the
@@ -189,6 +191,26 @@ Phases, each of which raises on failure (exit code != 0):
    ``native``; each on the host clock (median of 3) with the ratios, the
    host CPU's model and ``os.cpu_count()`` beside the card's name and
    power limit.
+
+13. the sharded codec (``parallel/``) and the graft entry points: (13a)
+   on ``make_mesh()`` (the card) and on ``make_mesh(4, devices=[cuda:0]
+   * 4)`` (four logical shards of it), phase 6's first batch (128 x 64
+   KiB): ``encode_blocks_sharded`` equal to the unsharded
+   ``encode_batch_generic`` (the hash branch, chosen by the whole batch),
+   every member read back by zlib; ``decode_members_sharded`` of it equal
+   to the plaintext; ``encode_sync_sharded`` equal to ``encode_batch``'s
+   words, bits, counts and offsets; ``decode_sync_sharded`` of its chunk
+   table equal to the unsharded ``sync_decode`` on the members end to end
+   (and expanding to the plaintext); ``combine_shard_crcs`` equal to
+   zlib's CRC; each call counted, every shard's kernels launched; (13b)
+   ``graft_entry.dryrun_multichip(4, devices=[cuda:0] * 4)``, counted;
+   (13c) ``graft_entry.dryrun_multihost(2, device="cuda")`` on the 64
+   MiB: two worker processes over gloo, both on cuda:0, 512 members
+   each, the stream byte-identical to phase 7's, ``decompress_multihost``
+   equal to the input and ``corpus_crc32_multihost`` to zlib's in both,
+   the workers' launches counted; (13d) host-clock times (median of 3)
+   of those calls and the unsharded ones, with the card's name and power
+   limit.  Phase 13's launches are added to each kernel's row.
 
 Kernels are keyed by module and function (``parse.walk_emit`` and
 ``decode.walk_emit`` are two kernels).
@@ -2289,6 +2311,10 @@ def main() -> None:
     # streams, the checksums, both decode routes, host-clock times
     native_engine(card_line, data, enc_stream, foreign)
 
+    # 13. the sharded codec on one card and on four logical shards of it,
+    # the dry runs, two processes over gloo
+    parallel_paths(dev, card_line, data, blocks, nv, enc_stream, row)
+
     print(json.dumps({"kernels": summary}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
@@ -2905,8 +2931,9 @@ def port_surface(dev, card_line: str, data: bytes, rk_args, hist_args,
         dec.finish()
         return b"".join(out)
 
-    if timed("ChunkedGzipDecoder, 8 MiB stream in 4 KiB feeds",
-             chunked_feed) != p8:
+    # one run: ~19 s a call on the card's host
+    if timed("ChunkedGzipDecoder, 8 MiB stream in 4 KiB feeds [1 run]",
+             chunked_feed, reps=1) != p8:
         raise AssertionError("the chunked decoder read wrong bytes")
     log(f"host paths: serial deflate / inflate of 1 MiB ({len(s1)} bytes, "
         f"ratio {len(s1) / len(p1):.6f}), BlockStreamer in 64 KiB writes "
@@ -2938,7 +2965,9 @@ def port_surface(dev, card_line: str, data: bytes, rk_args, hist_args,
                     raise AssertionError(f"{argv[3:]} exit "
                                          f"{res.returncode}: {res.stderr}")
 
-            timed(f"cli {' '.join(extra + [cmd])} (subprocess)", run_cli)
+            # one run each: 12-33 s a subprocess on the card's host
+            timed(f"cli {' '.join(extra + [cmd])} (subprocess) [1 run]",
+                  run_cli, reps=1)
             blob = (tmp / out).read_bytes()
             ok = (gzip.decompress(blob) == p8 if out.endswith(("gz", "pgz"))
                   else blob == p8)
@@ -2988,8 +3017,10 @@ def port_surface(dev, card_line: str, data: bytes, rk_args, hist_args,
         raise AssertionError("a repaired kernel disagrees with its plain "
                              "version")
 
-    # 11f. host-clock times, median of 3, with the peak device memory
-    log("phase 11 host clock, median of 3, ms (peak device memory above "
+    # 11f. host-clock times, median of 3 ("[1 run]": one), with the peak
+    # device memory
+    log("phase 11 host clock, median of 3 ([1 run]: one run), ms (peak "
+        "device memory above "
         "the allocation before, MiB): " + "; ".join(
             f"{k} {ms:.2f} ({peak:.0f})" for k, (ms, peak) in times.items())
         + f" [{card_line}]")
@@ -3168,6 +3199,230 @@ def native_engine(card_line: str, data: bytes, dev_stream: bytes,
                     for k, (ms, rate) in times.items())
         + f" [{card_line}] [{cpu}]")
     log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def parallel_paths(dev, card_line: str, data: bytes, blocks, nv,
+                   enc_stream: bytes, row: dict) -> None:
+    """Phase 13.  ``data``: the 64 MiB; ``blocks`` / ``nv``: phase 6's
+    first batch (128 x 64 KiB) on the card; ``enc_stream``: phase 7's
+    one-process ``pgzf.compress`` of ``data``.  Adds the counted
+    launches of the sharded calls, the dry runs and the multi-process
+    workers to ``row``.  Raises AssertionError naming the sub-phase."""
+    import numpy as np
+
+    from libflate_tpu_torch import graft_entry
+    from libflate_tpu_torch.ops import (deflate_decode, device_expand,
+                                        expand, fields, hist, lcp, pack,
+                                        parse, pipeline, rank)
+    from libflate_tpu_torch.ops import hash_match as hm
+    from libflate_tpu_torch.ops import sort_match as sm
+    from libflate_tpu_torch.ops import sync_decode as sd
+    from libflate_tpu_torch.ops.huffman import decode_table
+    from libflate_tpu_torch.parallel import sharding
+    from libflate_tpu_torch.parallel.mesh import make_mesh
+    t_phase = time.perf_counter()
+    kernels = (sm.sort_keys, sm.scan_emit, parse.chunk_exits,
+               parse.walk_emit, hist.token_hist, fields.token_fields,
+               pack.pack_stitch, hm.hash_candidates, lcp.match_lengths,
+               deflate_decode.decode_symbols, sd.sync_decode,
+               rank.rank_emit_src, expand.resolve_bytes)
+    totals = {kname(k): 0 for k in kernels}
+    times: dict = {}
+
+    def counted(what: str, fn, need: dict):
+        """``fn()`` with every count at 0 before and read after; each
+        kernel of ``need`` launched that many times (None: at least
+        once)."""
+        for k in kernels:
+            k.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        counts = {kname(k): k.launches for k in kernels if k.launches}
+        for k, n in counts.items():
+            totals[k] += n
+        bad = {kname(k): counts.get(kname(k), 0) for k, n in need.items()
+               if (counts.get(kname(k), 0) < 1 if n is None
+                   else counts.get(kname(k), 0) != n)}
+        if bad:
+            raise AssertionError(f"phase {what}: kernel launches {bad}, "
+                                 f"expected {need} (all: {counts})")
+        log(f"phase {what} launches: {counts}")
+        return res
+
+    def timed(what: str, fn, reps: int = 3) -> None:
+        walls = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        times[what] = statistics.median(walls) * 1e3
+
+    # 13a. one card and four logical shards on it, phase 6's first batch
+    blocks_h, nv_h = blocks.cpu().numpy(), nv.cpu().numpy()
+    n_b, width = blocks_h.shape
+    bf = np.ones(n_b, np.int32)
+    k_tok = sd.SYNC_TOKENS
+    w_gen, b_gen = pipeline.encode_batch_generic(
+        blocks, nv, bf, "dynamic", pipeline.use_kernel_branches(dev))
+    w_gen = w_gen.cpu().numpy().view(np.uint32)
+    b_gen = b_gen.cpu().numpy()
+    want = {k: v.cpu().numpy() for k, v in
+            pipeline.encode_batch(blocks, nv, k_tok).items()}
+    meshes = {"one card": make_mesh(),
+              "4 logical shards": make_mesh(4, devices=[dev] * 4)}
+    for label, mesh in meshes.items():
+        m = len(mesh)
+        what = f"13a ({label}, {m} shard{'s' if m > 1 else ''})"
+        words, bits = counted(
+            f"{what} encode_blocks_sharded",
+            lambda: sharding.encode_blocks_sharded(blocks_h, nv_h, bf, mesh),
+            {hm.hash_candidates: m, fields.token_fields: None,
+             parse.walk_emit: None})
+        if not (np.array_equal(words, w_gen) and np.array_equal(bits, b_gen)):
+            raise AssertionError(f"phase {what}: encode_blocks_sharded "
+                                 f"differs from encode_batch_generic")
+        lit, dist, starts, rows, bodies = graft_entry._member_words(words,
+                                                                    bits)
+        for i, body in enumerate(bodies):
+            if zlib.decompress(body, -15) != blocks_h[i].tobytes():
+                raise AssertionError(f"phase {what}: zlib does not read "
+                                     f"member {i}")
+        out, n_out, err = counted(
+            f"{what} decode_members_sharded",
+            lambda: sharding.decode_members_sharded(rows, starts, lit, dist,
+                                                    width, mesh),
+            {deflate_decode.decode_symbols: m})
+        if err.any() or not (np.array_equal(n_out, nv_h)
+                             and np.array_equal(out, blocks_h)):
+            raise AssertionError(f"phase {what}: decode_members_sharded is "
+                                 f"not the plaintext")
+        got = counted(
+            f"{what} encode_sync_sharded",
+            lambda: sharding.encode_sync_sharded(blocks_h, nv_h, bf, k_tok,
+                                                 mesh),
+            {sm.sort_keys: m, sm.scan_emit: m, hist.token_hist: m,
+             fields.token_fields: m, pack.pack_stitch: m})
+        for g, key in zip(got, ("words", "bits", "n_tokens", "offsets")):
+            if not np.array_equal(g, want[key].astype(g.dtype)):
+                raise AssertionError(f"phase {what}: encode_sync_sharded's "
+                                     f"{key} differ from encode_batch's")
+        # the sync decode: a chunk table of the shared-table members
+        # against the unsharded kernel on the members end to end
+        words2, bits2, cnt2, offs2 = got
+        lit2, dist2, _s, rows2, bodies2 = graft_entry._member_words(words2,
+                                                                    bits2)
+        max_nc = -(-int(cnt2.max()) // k_tok)
+        j = np.minimum(np.arange(max_nc), offs2.shape[1] - 1)
+        ch_bits = offs2[:, j].reshape(-1)
+        ch_cnts = np.clip(cnt2[:, None].astype(np.int64)
+                          - np.arange(max_nc)[None, :] * k_tok, 0,
+                          k_tok).reshape(-1).astype(np.int32)
+        ch_rows = np.repeat(rows2, max_nc, axis=0)
+        toks = counted(
+            f"{what} decode_sync_sharded",
+            lambda: sharding.decode_sync_sharded(ch_rows, ch_bits, ch_cnts,
+                                                 lit2[:1], dist2[:1], k_tok,
+                                                 mesh),
+            {sd.sync_decode: m})
+        body_off = np.cumsum([0] + [len(b_) for b_ in bodies2[:-1]])
+        rb = max(int(lit2.max()), 7)
+        whole = sd.sync_decode(
+            sd.stream_words(b"".join(bodies2), dev),
+            torch.from_numpy((body_off[:, None] * 8 + offs2[:, j]).reshape(
+                -1).astype(np.int64)).to(dev),
+            torch.from_numpy(ch_cnts).to(dev),
+            decode_table(lit2[0], rb, dev), decode_table(dist2[0], 8, dev),
+            k_tok, rb, debug=False)
+        if not np.array_equal(toks, whole.cpu().numpy()):
+            raise AssertionError(f"phase {what}: decode_sync_sharded "
+                                 f"differs from the unsharded sync_decode")
+        back, _n, berr = device_expand.expand_members(
+            whole.view(n_b, -1), torch.from_numpy(cnt2).to(dev), width)
+        if bool(berr.any()) or not np.array_equal(back.cpu().numpy(),
+                                                  blocks_h):
+            raise AssertionError(f"phase {what}: the sync tokens do not "
+                                 f"expand to the plaintext")
+        crcs = [zlib.crc32(blocks_h[i, :nv_h[i]].tobytes())
+                for i in range(n_b)]
+        if sharding.combine_shard_crcs(crcs, [int(x) for x in nv_h]) != \
+                zlib.crc32(data[:n_b * width]):
+            raise AssertionError(f"phase {what}: combine_shard_crcs")
+        log(f"phase {what}: encode_blocks_sharded equal to "
+            f"encode_batch_generic (hash branch), every member read by zlib;"
+            f" decode_members_sharded the plaintext; encode_sync_sharded "
+            f"equal to encode_batch (words, bits, counts, offsets); "
+            f"decode_sync_sharded of {len(ch_bits)} chunks equal to the "
+            f"unsharded sync_decode; combine_shard_crcs equal to zlib")
+        timed(f"encode_blocks_sharded [{label}]",
+              lambda: sharding.encode_blocks_sharded(blocks_h, nv_h, bf, mesh))
+        timed(f"decode_members_sharded [{label}]",
+              lambda: sharding.decode_members_sharded(rows, starts, lit, dist,
+                                                      width, mesh))
+        timed(f"encode_sync_sharded [{label}]",
+              lambda: sharding.encode_sync_sharded(blocks_h, nv_h, bf, k_tok,
+                                                   mesh))
+        timed(f"decode_sync_sharded [{label}]",
+              lambda: sharding.decode_sync_sharded(
+                  ch_rows, ch_bits, ch_cnts, lit2[:1], dist2[:1], k_tok,
+                  mesh))
+        del ch_rows, rows2, rows, out
+    timed("encode_batch_generic, unsharded, words to the host",
+          lambda: pipeline.encode_batch_generic(
+              blocks, nv, bf, "dynamic", True)[0].cpu())
+    timed("encode_batch, unsharded, words to the host",
+          lambda: pipeline.encode_batch(blocks, nv, k_tok)["words"].cpu())
+
+    # 13b. the dry run over four logical shards on the card
+    counted("13b dryrun_multichip(4, [cuda:0] * 4)",
+            lambda: graft_entry.dryrun_multichip(4, devices=[dev] * 4),
+            {deflate_decode.decode_symbols: 4, sd.sync_decode: 8,
+             rank.rank_emit_src: 4, expand.resolve_bytes: 4,
+             hist.token_hist: 4, pack.pack_stitch: 4})
+    timed("dryrun_multichip(4, [cuda:0] * 4)",
+          lambda: graft_entry.dryrun_multichip(4, devices=[dev] * 4))
+
+    # 13c. two processes over gloo, both on cuda:0, 512 members each
+    def multihost():
+        stream, launches = graft_entry.dryrun_multihost(
+            2, device="cuda", data=data, member_size=65536, timeout=300)
+        if stream != enc_stream:
+            raise AssertionError("phase 13c: the two-process stream differs "
+                                 "from phase 7's one-process stream")
+        return launches
+
+    walls = []
+    for i in range(3):
+        t = time.perf_counter()
+        got = multihost()
+        walls.append(time.perf_counter() - t)
+        if i == 0:
+            launches = got
+    times["dryrun_multihost(2, cuda), 64 MiB"] = statistics.median(
+        walls) * 1e3
+    need = [kname(k) for k in (sm.sort_keys, sm.scan_emit, parse.chunk_exits,
+                               parse.walk_emit, hist.token_hist,
+                               fields.token_fields, pack.pack_stitch,
+                               sd.sync_decode, rank.rank_emit_src,
+                               expand.resolve_bytes)]
+    if any(launches.get(k, 0) < 1 for k in need):
+        raise AssertionError(f"phase 13c: a kernel of the path did not run "
+                             f"in the workers: {launches}")
+    for k in totals:
+        totals[k] += launches.get(k, 0)
+    log(f"phase 13c dryrun_multihost(2, cuda) on {len(data)} bytes: stream "
+        f"byte-identical to phase 7's, decompress_multihost equal to the "
+        f"input and corpus_crc32_multihost equal to zlib in both workers; "
+        f"the workers' launches: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for k, n in totals.items():
+        row[k]["launches"] += n
+    log(f"phase 13 launches added to the kernels' rows: "
+        f"{ {k: n for k, n in totals.items() if n} }")
+    # 13d. host-clock times
+    log("phase 13 host clock, median of 3, ms: " + "; ".join(
+        f"{k} {ms:.2f}" for k, ms in times.items()) + f" [{card_line}]")
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -50,6 +50,10 @@ reference file by file:
                              its bindings and the "native" engine
     spec/constants.py, utils/checksum.py   format constants, checksums
     utils/profiling.py       StageTimer, device_trace, block_until_ready
+    parallel/mesh.py         a one-axis mesh of torch devices
+    parallel/sharding.py     the encodes and decodes split over a mesh
+    parallel/multihost.py    PGZF slabs over torch.distributed
+    graft_entry.py           entry, dryrun_multichip, dryrun_multihost
 
 Every kernel wrapper takes CPU tensors to the kernel's plain PyTorch
 version and CUDA tensors to the kernel; it never falls back from one to
@@ -62,7 +66,8 @@ from __future__ import annotations
 import importlib
 
 _SUBMODULES = ("backend", "chunked", "cli", "convert", "finish", "formats",
-               "lz77", "native", "ops", "serial", "spec", "utils")
+               "graft_entry", "lz77", "native", "ops", "parallel", "serial",
+               "spec", "utils")
 #: public name -> the module that holds it
 _EXPORTS = {
     "deflate": "formats.deflate", "gzip": "formats.gzip",

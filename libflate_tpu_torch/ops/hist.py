@@ -132,9 +132,17 @@ token_hist.launches = 0
 def shared_histograms(a, b, valid):
     """Batch-global ``(lit_freq (286,), dist_freq (30,))`` int32, as the
     reference's ``shared_histograms_pallas``."""
-    bins = token_hist(a, b, valid).to(torch.int64)
+    return histograms_from_bins(token_hist(a, b, valid), a.shape[0])
+
+
+def histograms_from_bins(bins: torch.Tensor, n_members: int):
+    """:func:`token_hist` bins of a batch of ``n_members`` (or the sum of
+    its shards' bins) -> ``(lit_freq (286,), dist_freq (30,))`` int32: one
+    END_OF_BLOCK a member, and the dummy distance code when the whole
+    batch has no match."""
+    bins = bins.to(torch.int64)
     lit = bins[:C.MAX_LITLEN_SYMBOLS].clone()
-    lit[C.END_OF_BLOCK] += a.shape[0]
+    lit[C.END_OF_BLOCK] += n_members
     dist = bins[DIST_BIN0:DIST_BIN0 + C.MAX_DIST_SYMBOLS].clone()
     if int(dist.sum()) == 0:
         dist[0] = 1

@@ -8,7 +8,10 @@ batch of PGZF members, and the generic engine's raw-DEFLATE encode
 ``deflate_encode.assemble_fields``),
 ``_pack_chunks_device`` (``:551``), ``_sync_offsets_padded`` (``:638``),
 ``_sync_cols_tail`` (``:797``) and ``_encode_batch_sync_cols``
-(``:767``); for the generic engine ``_tokenize_batch``,
+(``:767``); the compacted route of ``_encode_batch_sync`` (``:729-735``,
+:func:`tokenize_compact`) and ``_sync_offsets_batch`` (``:532``) for
+batches other than 128, which ``parallel/sharding.py`` takes; for the
+generic engine ``_tokenize_batch``,
 ``_tokenize_tail`` and ``_tokenize_batch_any`` (``:30-67``),
 ``_fields_batch`` (``:302``) and ``_fields_batch_pallas`` (``:318``),
 both as ``deflate_encode.encode_block_fields``, ``_pack_batch``
@@ -225,10 +228,17 @@ def tokenize(blocks, n_valid, cap: int = PARSE_CAP, *, lazy: bool = True,
 def shared_stats(a, b, valid, max_len: int = SHARED_MAX_LEN):
     """Batch histogram (device) -> one shared code set (host, numpy):
     (lit_lengths, dist_lengths, lit_rev, lit_w, dist_rev, dist_w)."""
-    lit_freq, dist_freq = shared_histograms(a, b, valid)
-    lit_lengths = package_merge_lengths(lit_freq.cpu().numpy(), max_len)
-    dist_lengths = package_merge_lengths(dist_freq.cpu().numpy(),
-                                         min(max_len, 8))
+    return shared_code(*shared_histograms(a, b, valid), max_len)
+
+
+def shared_code(lit_freq, dist_freq, max_len: int = SHARED_MAX_LEN):
+    """The host half of :func:`shared_stats`: a batch's (286,) litlen and
+    (30,) distance counts (tensors on any device, or numpy) -> its shared
+    code set, package-merged to ``max_len`` / ``min(max_len, 8)`` bits."""
+    lit_freq, dist_freq = (f.cpu().numpy() if torch.is_tensor(f) else f
+                           for f in (lit_freq, dist_freq))
+    lit_lengths = package_merge_lengths(lit_freq, max_len)
+    dist_lengths = package_merge_lengths(dist_freq, min(max_len, 8))
     lit_rev, lit_w = encoder_tables(lit_lengths)
     dist_rev, dist_w = encoder_tables(dist_lengths)
     return lit_lengths, dist_lengths, lit_rev, lit_w, dist_rev, dist_w
@@ -241,6 +251,16 @@ def shared_tokens(a, b, valid, lit_rev, lit_w, dist_rev, dist_w, header):
     fields = token_fields(torch.where(valid, a, -1), b, tables)
     return assemble_fields(header, fields, lit_rev[C.END_OF_BLOCK],
                            lit_w[C.END_OF_BLOCK])
+
+
+def shared_encode(a, b, valid, stats):
+    """Token slots and their batch's shared code set (:func:`shared_stats`)
+    -> (words (B, W) int32, bits (B,), widths (B, F) int32): the one final
+    dynamic block of each member, its header the shared code's."""
+    header = dynamic_header_fields(stats[0], stats[1], 1)
+    values, widths = shared_tokens(a, b, valid, *stats[2:], header)
+    words, _starts, bits = pack_chunks(values, widths)
+    return words, bits, widths
 
 
 def sync_offsets_padded(widths, valid, k: int, cap: int):
@@ -300,13 +320,8 @@ def encode_batch(blocks: torch.Tensor, n_valid: torch.Tensor, k: int,
         raise ValueError("encode_batch: member size must be a multiple "
                          "of 512")
     a, b, valid, cnt, ovf = tokenize(blocks, n_valid, cap, **knobs)
-    (lit_lengths, dist_lengths, lit_rev, lit_w, dist_rev,
-     dist_w) = shared_stats(a, b, valid)
-    # BFINAL set: every member is one final block
-    header = dynamic_header_fields(lit_lengths, dist_lengths, 1)
-    values, widths = shared_tokens(a, b, valid, lit_rev, lit_w, dist_rev,
-                                   dist_w, header)
-    words, _starts, bits = pack_chunks(values, widths)
+    words, bits, widths = shared_encode(a, b, valid,
+                                        shared_stats(a, b, valid))
     return {"words": words, "bits": bits, "n_tokens": cnt,
             "crc_f": crc32_f_rows(blocks), "overflow": ovf,
             "wide": width_flags(widths),
@@ -338,6 +353,42 @@ def tokenize_tail(blocks, n_valid, cand):
     return lz77.tokenize_block_from_cand(blocks, n_valid,
                                          blocks.shape[1] + 1, cand,
                                          max_rounds=KERNEL_LCP_ROUNDS)
+
+
+def use_padded_parse(n_members: int) -> bool:
+    """Whether a shared-table batch of ``n_members`` takes the padded parse
+    (:func:`encode_batch`): the reference's ``_use_padded_parse`` on its
+    kernel branch, a batch of 128.  Any other batch takes the compacted
+    route (:func:`tokenize_compact`, :func:`sync_offsets_compact`)."""
+    return n_members == LANES
+
+
+def tokenize_compact(blocks, n_valid):
+    """The compacted route's tokens (the reference's ``_encode_batch_sync``
+    off the padded parse, ``pipeline.py:729-735``): the sort tokenizer with
+    exact lengths, (a, b, valid, n_tokens) with ``valid`` the slots below
+    each member's count, (B, n + 1)."""
+    a, b, cnt = tokenize_batch(blocks, n_valid)
+    valid = (torch.arange(a.shape[1], device=a.device)[None, :]
+             < cnt[:, None])
+    return a, b, valid, cnt
+
+
+def sync_offsets_compact(widths, k: int):
+    """Sync offsets of the compacted layout (the reference's
+    ``_sync_offsets_batch``): the bit offset of tokens 0, k, 2k, ... of
+    each member, (B, ceil(M / k) + 1) int32 for M token slots (the field
+    rows hold the header, 2M token fields and the EOB); a target past the
+    field row reads its end, the EOB included, as the reference's clip
+    does."""
+    f0 = N_HEADER_FIELDS + N_LENGTH_FIELDS
+    n_fields = widths.shape[1]
+    m = (n_fields - f0 - 1) // 2
+    slots = -(-m // k) + 1
+    idx = (f0 + 2 * k * torch.arange(slots, device=widths.device)).clamp(
+        1, n_fields)
+    cum = torch.cumsum(widths.to(torch.int64), dim=1)
+    return cum[:, idx - 1].to(torch.int32)
 
 
 def tokenize_batch_any(blocks, n_valid, hash_branch: bool):

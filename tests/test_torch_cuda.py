@@ -2140,3 +2140,71 @@ def test_native_decodes_the_device_stream(dev):
     stream = pgzf.compress(plain, member_size=4096, device="cuda")
     assert pgzf.decompress(stream, engine="native") == plain
     assert chip_smoke.native_members(stream) == plain
+
+
+@pytest.fixture(scope="module")
+def shard_batch(dev):
+    """128 members of 4096 bytes of the small sync fixture's plaintext,
+    the last three cut short."""
+    plain = gzip.decompress((DATA / "pgzf_sync_zipf_small.pgz").read_bytes())
+    n = 4096
+    plain = plain * -(-128 * n // len(plain))
+    blocks = np.frombuffer(plain[:128 * n], np.uint8).reshape(128, n).copy()
+    nv = np.full((128,), n, np.int32)
+    nv[-3:] = [0, 17, 3000]
+    for i in range(128):
+        blocks[i, nv[i]:] = 0
+    return blocks, nv
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_sharded_encodes_equal_unsharded_calls_on_a_logical_mesh(
+        dev, shard_batch, n_shards):
+    """On ``[cuda:0] * 4`` (four logical shards on one card) and on the
+    one-card mesh, the block encode takes the hash candidates on every
+    shard and equals the unsharded hash-branch encode; the shared-table
+    sync encode (the histogram summed across shards) equals
+    ``encode_batch`` on the whole batch; both decode back on the card."""
+    from libflate_tpu_torch.parallel import sharding
+    from libflate_tpu_torch.parallel.mesh import make_mesh
+    blocks, nv = shard_batch
+    mesh = make_mesh(n_shards, devices=[dev] * n_shards)
+    bf = np.ones((128,), np.int32)
+    blocks_d = torch.from_numpy(blocks).to(dev)
+    nv_d = torch.from_numpy(nv).to(dev)
+    hm.hash_candidates.launches = 0
+    words, bits = sharding.encode_blocks_sharded(blocks, nv, bf, mesh)
+    assert hm.hash_candidates.launches == n_shards
+    w_ref, b_ref = pipeline.encode_batch_generic(blocks_d, nv_d, bf,
+                                                 "dynamic", True)
+    assert np.array_equal(words, w_ref.cpu().numpy().view(np.uint32))
+    assert np.array_equal(bits, b_ref.cpu().numpy())
+    want = pipeline.encode_batch(blocks_d, nv_d, 256)
+    hist.token_hist.launches = 0
+    got = sharding.encode_sync_sharded(blocks, nv, bf, 256, mesh)
+    assert hist.token_hist.launches == n_shards
+    for g, key in zip(got, ("words", "bits", "n_tokens", "offsets")):
+        assert np.array_equal(g, want[key].cpu().numpy().astype(g.dtype))
+    # the block encode's members decode back through the sharded decode
+    from libflate_tpu_torch import graft_entry
+    lit, dist, starts, rows, _ = graft_entry._member_words(words, bits)
+    deflate_decode.decode_symbols.launches = 0
+    out, n_out, err = sharding.decode_members_sharded(rows, starts, lit,
+                                                      dist, 4096, mesh)
+    assert deflate_decode.decode_symbols.launches == n_shards
+    assert not err.any() and np.array_equal(n_out, nv)
+    # bytes past a member's n_out are the expansion's, not zeros
+    live = np.arange(4096)[None, :] < nv[:, None]
+    assert np.array_equal(out[live], blocks[live])
+
+
+def test_dryrun_multichip_on_a_logical_mesh(dev):
+    from libflate_tpu_torch import graft_entry
+    for k in (sd.sync_decode, rank.rank_emit_src, expand.resolve_bytes,
+              deflate_decode.decode_symbols):
+        k.launches = 0
+    graft_entry.dryrun_multichip(4, devices=[dev] * 4)
+    assert sd.sync_decode.launches >= 4
+    assert rank.rank_emit_src.launches == 4
+    assert expand.resolve_bytes.launches == 4
+    assert deflate_decode.decode_symbols.launches == 4

@@ -271,6 +271,20 @@ timer = StageTimer()
 with timer.stage("x"):
     pass
 assert timer.report().startswith("x ")
+# the sharded codec on a host mesh, the entry step, one process's
+# multi-process encode
+from libflate_tpu_torch import graft_entry
+from libflate_tpu_torch.parallel import mesh, multihost, sharding
+import contextlib
+with contextlib.redirect_stdout(io.StringIO()) as said:
+    graft_entry.dryrun_multichip(2, devices=["cpu"] * 2)
+assert "round-trip bit-exact" in said.getvalue()
+fn, args = graft_entry.entry("cpu")
+assert fn(*args)[0].shape[0] == 8
+assert multihost.compress_multihost(data, 1024, engine="native") == nat
+assert len(mesh.make_mesh(2, devices=["cpu"] * 4)) == 2
+assert sharding.combine_shard_crcs([zlib.crc32(data)], [len(data)]) == \
+    zlib.crc32(data)
 blocked = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "libflate_tpu")]
 assert not blocked, blocked
@@ -293,8 +307,10 @@ def test_imports_and_runs_with_jax_blocked(small):
     public LZ77 API, ``Finish`` and the CLI (``gzip-encode`` and a
     ``--stream`` ``gzip-decode`` on "cpu" and "serial"), the native engine
     (pgzf's native encode and both native decode routes, the gzip
-    container and a CLI round trip on it) and the stage timer, with both
-    JAX and the reference package blocked."""
+    container and a CLI round trip on it), the stage timer, the sharded
+    codec's dry run on a host mesh, the entry step and one process's
+    multi-process encode, with both JAX and the reference package
+    blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(DATA / FIXTURES[0])],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
