@@ -7,10 +7,11 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
    no CUDA means exit 1 before anything runs;
-2. build the twelve CUDA sources from ``libflate_tpu_torch/csrc`` with
+2. build the thirteen CUDA sources from ``libflate_tpu_torch/csrc`` with
    one nvcc per source, all at once, for sm_90a, and the native host
    library (``libflate_tpu_torch/native/libflate_native.cpp``) with g++;
-   print the sort
+   print the checksum kernels' registers, shared memory and resident
+   blocks (``checksum.kernel_info``), the sort
    matcher's and the parse's registers, shared memory and resident
    clusters / blocks at n = 65536, and the rank's, the pack's, the
    histogram's, the token fields', the two-table gather's (windows 16
@@ -33,6 +34,8 @@ Phases, each of which raises on failure (exit code != 0):
 5. the decode main path ``decompress_to_device(verify=True,
    device="cuda")``, counted: plaintext equal to the oracle, every
    member's CRC checked, and each decode kernel's launch count above 0;
+   the CRC f-values kernel (``checksum.crc32_f_rows``) counted on this
+   path and on 5b, 5c and 7;
    5b. the speculative main path: the stripped shard through the same
    call, counted: each speculative kernel once per group of 128 members
    (8), the sync kernel never, rows equal to the sync path's and gzip's;
@@ -41,7 +44,8 @@ Phases, each of which raises on failure (exit code != 0):
    (per-member dynamic tables, no index: walked by end bits), and the
    committed ``pgzf_encode_small.pgz`` (LF-indexed, stored members 130-133:
    one threaded batch), each equal to ``gzip.decompress`` with every CRC
-   checked; rank and resolve launched, the sync and speculative kernels
+   checked; rank, resolve and the CRC launched, the sync and speculative
+   kernels
    not;
    5d. ``decode_symbols`` (the generic decode, ``csrc/inflate.cu``)
    against its plain version, all five outputs bit-identical, on
@@ -80,6 +84,11 @@ Phases, each of which raises on failure (exit code != 0):
    candidates, no prefix, 8 rounds, window 32768) and as the hash
    profile does (hash candidates, 6 rounds), one chain level's gather,
    the hash table;
+   6c. the checksum kernels (``csrc/checksum.cu``) against their plain
+   versions, bit-exact: ``crc32_f_rows`` on the decode shard's rows (phase
+   4's resolve output, 1024 x 65,536), on one speculative group's rows
+   (phase 4b's group expanded) and on the first encode batch's blocks,
+   and ``adler32_device`` on each of the three flattened;
 7. the encode main path ``compress(device="cuda")`` of the 64 MiB,
    counted: every encode kernel launched (the sort and the scan once per
    batch, here and in the quality mode), the stream read back by stdlib
@@ -97,7 +106,9 @@ Phases, each of which raises on failure (exit code != 0):
 9. timing with CUDA events (kernels, plain versions, yardsticks, among
    them ``torch.searchsorted`` of every output position, the search half
    of the rank kernel only, which is printed beside it and is not its
-   ``library_ms``; the sync decode, rank, resolve, histogram, pack,
+   ``library_ms``; the CRC f-values kernel on the decode shard's rows and
+   the Adler-32 kernel on its 64 MiB, each also launched alone, 48 back
+   to back; the sync decode, rank, resolve, histogram, pack,
    hash, LCP (its three calls), token fields (also per member),
    two-table gather and speculative position decode, chunk
    exit and walk kernels also launched alone, 48 back to back, on the
@@ -140,7 +151,8 @@ Phases, each of which raises on failure (exit code != 0):
    (timed by the host clock and by CUDA events, wrapper and launch);
    (10d) the 64 MiB through the sort branch, counted; (10e)
    ``gzip.compress`` / ``zlib.compress`` of 8 MiB and the engine's
-   ``crc32`` / ``adler32`` of 64 MiB against the standard library; (10f)
+   ``crc32`` / ``adler32`` of 64 MiB against the standard library, with
+   the checksum kernels counted; (10f)
    ``pgzf.compress(64 MiB, block_type="fixed")``, ``hash_candidates``
    launched 8 times, read back by gzip and ``pgzf.decompress``; (10g) a
    stdlib gzip stream with a 2 MiB stored member through
@@ -151,7 +163,8 @@ Phases, each of which raises on failure (exit code != 0):
    The launches of the main-path runs (the 8 MiB and 64 MiB compresses,
    the 8 MiB decode, pgzf fixed blocks) are added to each counted
    kernel's row: ``hash_candidates``, ``token_fields``, the parse
-   kernels and ``decode_symbols``.
+   kernels and ``decode_symbols``; 10e's checksum launches to the
+   checksum kernels' rows.
 
 11. the host surface over the ``cuda`` engine: (11a) odd member sizes:
    the first batch of 128 x 65024-byte members (``ODD_MEMBER``, 127 x
@@ -745,6 +758,10 @@ def main() -> None:
     log(f"lcp.cu at n=65536: window 32768 (chain levels, hash) "
         f"{json.dumps(lcp.kernel_info(65536, 32768))}, window 8192 (sort "
         f"m4) {json.dumps(lcp.kernel_info(65536, 8192))} [{card_line}]")
+    log("checksum.cu: " + ", ".join(
+        f"{k} {json.dumps(checksum.kernel_info(k))}"
+        for k in ("crc_tiles", "crc_fold", "adler_partial", "adler_fold"))
+        + f" [{card_line}]")
     log("spec_decode.cu: " + ", ".join(
         f"{k} {json.dumps(decode.kernel_info(k))}"
         for k in ("speculative_decode_positions", "chunk_exit_maps",
@@ -875,7 +892,9 @@ def main() -> None:
     del s_tok_p, s_nxt_p, s_ex_p, s_ent_p, s_emit_p, g2_p
 
     # 5. the decode main path, counted
-    dec_kernels = (sd.sync_decode, rank.rank_emit_src, expand.resolve_bytes)
+    crc_k = checksum.crc32_f_rows
+    dec_kernels = (sd.sync_decode, rank.rank_emit_src, expand.resolve_bytes,
+                   crc_k)
     enc_kernels = (sm.sort_keys, sm.scan_emit, parse.chunk_exits,
                    parse.walk_emit, hist.token_hist, fields.token_fields,
                    pack.pack_stitch)
@@ -884,7 +903,7 @@ def main() -> None:
                     decode.chunk_exit_maps, deflate_decode.chain_entries,
                     decode.walk_emit)
     all_kernels = (dec_kernels + enc_kernels + opt_kernels + spec_kernels
-                   + (gather.gather_two,))
+                   + (gather.gather_two, checksum.adler32_device))
     for k in all_kernels:
         k.launches = 0
     plain_dev, lengths = pgzf.decompress_to_device(stream, verify=True,
@@ -894,6 +913,8 @@ def main() -> None:
     log(f"decode main path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path did not run: {launches}")
+    # the CRC f-values kernel runs on every path: its row sums the runs
+    crc_runs = {"decode": crc_k.launches}
     if plain_dev.shape != (bsz, cap) or plain_dev.dtype != torch.uint8:
         raise AssertionError(f"bad output {plain_dev.shape} "
                              f"{plain_dev.dtype}")
@@ -920,11 +941,14 @@ def main() -> None:
         torch.cuda.synchronize()
         counts = {kname(k): k.launches for k in spec_kernels}
         log(f"{what} launches: {counts}, sync_decode "
-            f"{sd.sync_decode.launches}")
+            f"{sd.sync_decode.launches}, crc32_f_rows {crc_k.launches}")
         if (set(counts.values()) != {n_groups}
                 or sd.sync_decode.launches != 0):
             raise AssertionError(f"expected each speculative kernel "
                                  f"{n_groups} times and no sync decode")
+        if crc_k.launches < 1:
+            raise AssertionError(f"{what}: crc32_f_rows did not run")
+        crc_runs[what] = crc_k.launches
         if not torch.equal(rows, sync_rows):
             raise AssertionError(f"{what}: rows differ from the sync path's")
         live_ = (torch.arange(rows.shape[1], device=dev)[None, :]
@@ -955,7 +979,7 @@ def main() -> None:
         "1024 stdlib gzip members of 64 KiB, no index": foreign,
         "pgzf_encode_small.pgz, stored members 130-133":
             (DATA / "pgzf_encode_small.pgz").read_bytes()}
-    fg_kernels = (rank.rank_emit_src, expand.resolve_bytes)
+    fg_kernels = (rank.rank_emit_src, expand.resolve_bytes, crc_k)
     for what, fstream in foreign_streams.items():
         fplain = gzip.decompress(fstream)
         for k in all_kernels:
@@ -969,8 +993,10 @@ def main() -> None:
         log(f"foreign decode ({what}) launches: {counts}, other kernels "
             f"{others}")
         if min(counts.values()) < 1 or others:
-            raise AssertionError(f"foreign decode ({what}): expected rank "
-                                 f"and resolve only: {counts} {others}")
+            raise AssertionError(f"foreign decode ({what}): expected rank, "
+                                 f"resolve and the CRC only: {counts} "
+                                 f"{others}")
+        crc_runs[f"foreign decode ({what})"] = crc_k.launches
         live_ = (torch.arange(rows.shape[1], device=dev)[None, :]
                  < lens.to(torch.int64)[:, None])
         if bytes(rows[live_].cpu().numpy()) != fplain:
@@ -1356,6 +1382,31 @@ def main() -> None:
                              f"{errs}")
     del ln8_p, ln6_p, lnc_p, level2_p, hcand_raw_p
 
+    # 6c. the checksum kernels against their plain versions: the CRC
+    # f-values of the decode shard's rows (phase 4's resolve output), of
+    # one speculative group's rows (phase 4b's group expanded) and of the
+    # first encode batch's blocks; Adler-32 of each of them flattened
+    o_cap = st["out_cap"]
+    s_packed, s_nt, _ = deflate_decode.tokens_from_emit_packed(s_emit,
+                                                               o_cap + 2)
+    s_plain = device_expand.expand_members(s_packed, s_nt, o_cap)[0]
+    ck_errs = {}
+    for what, rows_ in (("decode shard", out), ("speculative group", s_plain),
+                        ("encode batch", blocks)):
+        f_k = checksum.crc32_f_rows(rows_)
+        f_p = checksum.crc32_f_rows_plain(rows_)
+        ad_k = checksum.adler32_device(rows_.reshape(-1))
+        ad_p = checksum.adler32_device_plain(rows_.reshape(-1))
+        ck_errs[f"{what} {tuple(rows_.shape)}"] = {
+            kname(checksum.crc32_f_rows): max_abs_err(f_k, f_p),
+            kname(checksum.adler32_device): abs(ad_k - ad_p)}
+    for k in (checksum.crc32_f_rows, checksum.adler32_device):
+        errs[kname(k)] = max(e[kname(k)] for e in ck_errs.values())
+    log(f"checksum kernels vs plain: max_abs_err {ck_errs}")
+    if any(errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: "
+                             f"{errs}")
+
     # 7. the encode main path, counted
     for k in all_kernels:
         k.launches = 0
@@ -1369,6 +1420,10 @@ def main() -> None:
                              f"{enc_launches}")
     n_batches = -(-len(data) // (n_b * ms_enc))
     check_one_sort_per_batch(enc_launches, n_batches, "encode main path")
+    log(f"encode main path crc32_f_rows launches: {crc_k.launches}")
+    if crc_k.launches < 1:
+        raise AssertionError("encode main path: crc32_f_rows did not run")
+    crc_runs["encode"] = crc_k.launches
     if gzip.decompress(enc_stream) != data:
         raise AssertionError("stdlib gzip does not read back the encode")
     back, back_len = pgzf.decompress_to_device(enc_stream, verify=True,
@@ -1639,6 +1694,26 @@ def main() -> None:
          lambda: sd.sync_decode_plain(*sd_args, debug=True,
                                       d_words=g["d_words"]), None,
          nbytes(*sd_args[:5], toks), 20, 2))
+    # the checksum kernels: the CRC f-values of the decode shard's rows
+    # (each row read once, a register written a row), Adler-32 of its 64
+    # MiB (read once, one word written)
+    crc_f = checksum.crc32_f_rows(out)
+    ad_in = out.view(-1)
+    rows += [
+        (kname(checksum.crc32_f_rows), "libflate_tpu_torch/csrc/checksum.cu",
+         "libflate_tpu/ops/checksum.py:170",
+         lambda: checksum.crc32_f_rows(out),
+         lambda: checksum.crc32_f_rows_plain(out), None,
+         nbytes(out, crc_f), 20, 3),
+        (kname(checksum.adler32_device),
+         "libflate_tpu_torch/csrc/checksum.cu",
+         "libflate_tpu/ops/checksum.py:288",
+         lambda: checksum.adler32_device(ad_in),
+         lambda: checksum.adler32_device_plain(ad_in), None,
+         nbytes(ad_in) + 4, 20, 3)]
+    launches[kname(checksum.crc32_f_rows)] = sum(crc_runs.values())
+    launches[kname(checksum.adler32_device)] = 0     # phase 10 adds its runs
+    log(f"crc32_f_rows main-path launches: {crc_runs}")
     summary = []
     for name_, source, replaces, kfn, pfn, lfn, moved, reps, preps in rows:
         ms = cuda_ms(kfn, reps)
@@ -1715,6 +1790,41 @@ def main() -> None:
         f"{'reaches' if ce_alone <= 2 * ce_lat_ms else 'misses'} half of "
         f"the latency bound [{card_line}]")
     del ds_out, ds_a, ds_bb
+    # the checksum kernels alone, 48 back to back on the same inputs: the
+    # CRC's launch (no allocation; pass 2 only for rows over one tile) and
+    # the Adler's two launches without the read-back of its word
+    ck_tiles = checksum.crc_tiles(out.shape[1])
+    ck_scr = torch.empty(out.shape[0] * ck_tiles, dtype=torch.int32,
+                         device=dev)
+    ck_consts = checksum._constants_on(dev)
+    crc_alone = cuda_ms_many([lambda: _build.launch(
+        "lf_crc32_rows", out.data_ptr(), out.shape[0], out.shape[1],
+        ck_tiles, ck_consts.data_ptr(),
+        ck_scr.data_ptr() if ck_tiles > 1 else None, crc_f.data_ptr())], 48)
+    ad_blocks = checksum.adler_blocks(ad_in.numel())
+    ad_part = torch.empty(2 * ad_blocks, dtype=torch.int32, device=dev)
+    ad_word = torch.empty(1, dtype=torch.int32, device=dev)
+    adler_alone = cuda_ms_many([lambda: _build.launch(
+        "lf_adler32", ad_in.data_ptr(), ad_in.numel(), ad_blocks,
+        ad_part.data_ptr(), ad_word.data_ptr())], 48)
+    for k_, alone_, info_ in (
+            (checksum.crc32_f_rows, crc_alone, ("crc_tiles", "crc_fold")),
+            (checksum.adler32_device, adler_alone,
+             ("adler_partial", "adler_fold"))):
+        r_ = row[kname(k_)]
+        log(f"{kname(k_)}: kernel {r_['ms']:.4f} ms, alone {alone_:.4f} ms "
+            f"(48 launches), plain {r_['plain_ms']:.4f} ms, bound "
+            f"{r_['bound_ms']:.4f} ms; alone it "
+            f"{'reaches' if alone_ <= 2 * r_['bound_ms'] else 'misses'} "
+            f"half of the bound; " + ", ".join(
+                f"{i} {json.dumps(checksum.kernel_info(i))}" for i in info_)
+            + f" [{card_line}]")
+    if (max_abs_err(crc_f, checksum.crc32_f_rows_plain(out))
+            or int(ad_word.item()) & 0xFFFFFFFF
+            != checksum.adler32_device_plain(ad_in)):
+        raise AssertionError("a checksum kernel launched alone disagrees "
+                             "with its plain version")
+    del ck_scr, ad_part, ad_word
     check_held("phase 9's timed launches")
     # the search half of rank_emit_src alone: every position searched in
     # the sentinel starts; not library_ms, since it computes neither src
@@ -2090,7 +2200,7 @@ def main() -> None:
             toks.view(bsz, -1), g["n_tokens"], cap),
         "rank_emit_src": lambda: rank.rank_emit_src(*rk_args),
         "resolve_bytes": lambda: expand.resolve_bytes(src, lit),
-        "crc32_f_rows (torch glue)": lambda: checksum.crc32_f_rows(out),
+        "crc32_f_rows": lambda: checksum.crc32_f_rows(out),
     }
     breakdown = {k: cuda_ms(fn, 5) for k, fn in stages.items()}
     log("decode chain stages, ms: " + ", ".join(
@@ -2121,10 +2231,6 @@ def main() -> None:
         spec_walls.append(time.perf_counter() - t)
     spec_e2e_s = statistics.median(spec_walls)
     spec_stage_ms = statistics.median(spec_stage_s) * 1e3
-    o_cap = st["out_cap"]
-    s_packed, s_nt, _ = deflate_decode.tokens_from_emit_packed(s_emit,
-                                                               o_cap + 2)
-    s_plain = device_expand.expand_members(s_packed, s_nt, o_cap)[0]
     spec_stages = {
         "speculative_decode_positions":
             lambda: decode.speculative_decode_positions(*sp_args),
@@ -2137,7 +2243,7 @@ def main() -> None:
                                                            o_cap + 2),
         "expand_members (glue, rank, resolve)":
             lambda: device_expand.expand_members(s_packed, s_nt, o_cap),
-        "crc32_f_rows (torch glue)": lambda: checksum.crc32_f_rows(s_plain),
+        "crc32_f_rows": lambda: checksum.crc32_f_rows(s_plain),
     }
     spec_breakdown = {k: cuda_ms(fn, 5) for k, fn in spec_stages.items()}
     log(f"speculative device chain (4 kernels, compaction, expand, CRC "
@@ -2178,7 +2284,7 @@ def main() -> None:
                                                 w_out),
         "sync_offsets_padded (glue)": lambda: pipeline.sync_offsets_padded(
             widths[:, :-fpad or None], valid, 256, pcap),
-        "crc32_f_rows (glue)": lambda: checksum.crc32_f_rows(blocks),
+        "crc32_f_rows": lambda: checksum.crc32_f_rows(blocks),
     }
     enc_breakdown = {k: cuda_ms(fn, 5) for k, fn in enc_stages.items()}
     log(f"encode device chain per batch (128 x 64 KiB = 8 MiB, "
@@ -2336,7 +2442,7 @@ def generic_engine(dev, card_line: str, data: bytes, blocks, nv, hcand,
     from libflate_tpu_torch.formats import gzip as fgzip
     from libflate_tpu_torch.formats import pgzf
     from libflate_tpu_torch.formats import zlib as fzlib
-    from libflate_tpu_torch.ops import (bitpack, deflate_decode,
+    from libflate_tpu_torch.ops import (bitpack, checksum, deflate_decode,
                                         deflate_encode, fields, lz77, parse,
                                         pipeline)
     from libflate_tpu_torch.ops import hash_match as hm
@@ -2513,7 +2619,11 @@ def generic_engine(dev, card_line: str, data: bytes, blocks, nv, hcand,
         f"launches {c64}; {len(data)} -> {len(s64)} bytes (ratio "
         f"{len(s64) / len(data):.6f}), read back by zlib")
 
-    # 10e. the containers and the engine's checksums
+    # 10e. the containers and the engine's checksums, the checksum
+    # kernels counted
+    ck_kernels = (checksum.crc32_f_rows, checksum.adler32_device)
+    for k in ck_kernels:
+        k.launches = 0
     g8 = fgzip.compress(p8, engine="cuda")
     z8 = fzlib.compress(p8, engine="cuda")
     if (gzip.decompress(g8) != p8 or zlib.decompress(z8) != p8
@@ -2524,9 +2634,14 @@ def generic_engine(dev, card_line: str, data: bytes, blocks, nv, hcand,
             or eng.crc32(data[1:], zlib.crc32(data[:1]))
             != zlib.crc32(data)):
         raise AssertionError("the cuda engine's checksums differ from zlib")
+    torch.cuda.synchronize()
+    ck_counts = {kname(k): k.launches for k in ck_kernels}
+    if min(ck_counts.values()) < 1:
+        raise AssertionError(f"a checksum kernel did not run: {ck_counts}")
     log(f"gzip.compress / zlib.compress(8 MiB, engine='cuda'): {len(g8)} / "
         f"{len(z8)} bytes, read back by stdlib, bodies equal to the raw "
-        f"stream; engine crc32 / adler32 of 64 MiB equal to zlib's")
+        f"stream; engine crc32 / adler32 of 64 MiB equal to zlib's "
+        f"(launches {ck_counts})")
 
     # 10f. pgzf with fixed blocks: 8 batches of 128 members
     fixed = EncodeOptions(block_type="fixed")
@@ -2568,6 +2683,8 @@ def generic_engine(dev, card_line: str, data: bytes, blocks, nv, hcand,
     for k in counted_kernels:
         row[kname(k)]["launches"] += sum(c[kname(k)]
                                          for c in (c8, c64, cf, d8))
+    for k in ck_kernels:
+        row[kname(k)]["launches"] += ck_counts[kname(k)]
     # peaks above what is allocated before the calls
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()

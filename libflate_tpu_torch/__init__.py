@@ -41,7 +41,7 @@ reference file by file:
     ops/expand.py            pointer chase to bytes        csrc/resolve.cu
     ops/deflate_decode.py    chunk entries, compaction     csrc/spec_decode.cu
                              inflate_device, decode_symbols csrc/inflate.cu
-    ops/checksum.py          CRC f-values (GF(2) matmul), Adler-32
+    ops/checksum.py          CRC f-values, Adler-32        csrc/checksum.cu
     serial/                  the serial engine: bitio, huffman, lz77,
                              deflate (also EncodeOptions, stored blocks,
                              the header parser)

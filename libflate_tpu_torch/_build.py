@@ -64,6 +64,9 @@ _SIGNATURES = {
     "lf_decode_symbols": "pippppiiqpppppp",
     "lf_decode_symbols_info": "p",
     "lf_decode_compact_tables": "ppiipp",
+    "lf_crc32_rows": "piqqpppp",
+    "lf_adler32": "pqippp",
+    "lf_checksum_info": "ip",
     "lf_load_chase": "pqpp",
     "lf_smem_chase": "pqpp",
 }

@@ -62,14 +62,28 @@ def test_sources_are_the_eleven_kernel_files():
 
 
 def test_sources_are_the_twelve_kernel_files():
+    """The twelve sources of every path (the checksums' is pinned by the
+    next test)."""
+    names = {s.name for s in _build.sources()}
+    assert {"fields.cu", "gather.cu", "hash.cu", "inflate.cu", "lcp.cu",
+            "match.cu", "pack.cu", "parse.cu", "rank.cu", "resolve.cu",
+            "spec_decode.cu", "sync_decode.cu"} <= names
+
+
+def test_sources_are_the_thirteen_kernel_files():
     names = sorted(s.name for s in _build.sources())
-    assert names == ["fields.cu", "gather.cu", "hash.cu", "inflate.cu",
-                     "lcp.cu", "match.cu", "pack.cu", "parse.cu", "rank.cu",
-                     "resolve.cu", "spec_decode.cu", "sync_decode.cu"]
+    assert names == ["checksum.cu", "fields.cu", "gather.cu", "hash.cu",
+                     "inflate.cu", "lcp.cu", "match.cu", "pack.cu",
+                     "parse.cu", "rank.cu", "resolve.cu", "spec_decode.cu",
+                     "sync_decode.cu"]
 
 
 def test_ctypes_signatures_match_the_c_entry_points():
-    assert _c_signatures() == _build._SIGNATURES
+    sigs = _c_signatures()
+    assert sigs == _build._SIGNATURES
+    assert {sigs[k] for k in ("lf_crc32_rows", "lf_adler32",
+                              "lf_checksum_info")} == {
+        "piqqpppp", "pqippp", "ip"}
 
 
 def test_library_is_named_by_source_hash():

@@ -21,9 +21,10 @@ import chip_smoke
 from chip_smoke import (decode_hard_cases, generic_shard, member_codes,
                         poison_ls, strip_sync_index)
 from libflate_tpu_torch.formats import pgzf
-from libflate_tpu_torch.ops import (decode, deflate_decode, deflate_encode,
-                                    device_expand, expand, fields, gather,
-                                    hist, lcp, pack, parse, pipeline, rank)
+from libflate_tpu_torch.ops import (checksum, decode, deflate_decode,
+                                    deflate_encode, device_expand, expand,
+                                    fields, gather, hist, lcp, pack, parse,
+                                    pipeline, rank)
 from libflate_tpu_torch.ops import hash_match as hm
 from libflate_tpu_torch.ops import sort_match as sm
 from libflate_tpu_torch.ops import sync_decode as sd
@@ -2208,3 +2209,113 @@ def test_dryrun_multichip_on_a_logical_mesh(dev):
     assert rank.rank_emit_src.launches == 4
     assert expand.resolve_bytes.launches == 4
     assert deflate_decode.decode_symbols.launches == 4
+
+
+# --- csrc/checksum.cu: CRC-32 f-values and Adler-32 ---------------------
+def _bytes_on(dev, shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, shape, dtype=np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize("bsz", [1, 3])
+@pytest.mark.parametrize("n", [1, 3, 63, 64, 65, 1000, 4096, 65536,
+                               (1 << 20) + 1])
+def test_crc32_f_rows_kernel_matches_plain(dev, n, bsz):
+    """Bit-identical at every shape: rows of 3 or 1000 bytes start off
+    the 16-byte grid, 1 MiB + 1 takes 17 tiles and the fold pass."""
+    rows = _bytes_on(dev, (bsz, n), n + bsz)
+    before = checksum.crc32_f_rows.launches
+    got = checksum.crc32_f_rows(rows)
+    assert checksum.crc32_f_rows.launches == before + 1
+    _eq(got, checksum.crc32_f_rows_plain(rows))
+    lens = [n] * bsz
+    np.testing.assert_array_equal(
+        checksum.crc32_from_padded_f(got.cpu().numpy(), lens, n),
+        [zlib.crc32(r.tobytes()) for r in rows.cpu().numpy()])
+
+
+def test_crc32_f_rows_kernel_long_row_and_edges(dev):
+    """One (1, 64 MiB + 3) row (1025 tiles, 4 a thread in the fold), B =
+    0, N = 0, a non-contiguous slice, a row from an odd address."""
+    big = _bytes_on(dev, (1, (64 << 20) + 3), 7)
+    got = checksum.crc32_f_rows(big)
+    _eq(got, checksum.crc32_f_rows_plain(big))
+    assert checksum.crc32_device(big[0]) == zlib.crc32(
+        big.cpu().numpy().tobytes())
+    for empty in (torch.empty((0, 100), dtype=torch.uint8, device=dev),
+                  torch.empty((3, 0), dtype=torch.uint8, device=dev)):
+        before = checksum.crc32_f_rows.launches
+        _eq(checksum.crc32_f_rows(empty),
+            torch.zeros(empty.shape[0], dtype=torch.int32, device=dev))
+        assert checksum.crc32_f_rows.launches == before
+    wide = _bytes_on(dev, (3, 3000), 8)
+    for view in (wide[:, 5:1005], wide.t()[:1000].t(), wide[1:, 1:]):
+        assert not view.is_contiguous()
+        _eq(checksum.crc32_f_rows(view), checksum.crc32_f_rows_plain(view))
+    flat = _bytes_on(dev, (200001,), 9)
+    for off in (1, 3, 15):
+        assert flat[off:].data_ptr() % 16 == off
+        assert checksum.crc32_device(flat[off:]) == zlib.crc32(
+            flat[off:].cpu().numpy().tobytes())
+
+
+def test_crc32_f_rows_kernel_repeated_launches_agree(dev):
+    rows = _bytes_on(dev, (128, 65536), 10)
+    want = checksum.crc32_f_rows_plain(rows)
+    outs = [checksum.crc32_f_rows(rows) for _ in range(48)]
+    torch.cuda.synchronize()
+    for got in outs:
+        _eq(got, want)
+
+
+@pytest.mark.parametrize("bsz,n", [(3, 65536), (3, 200000), (2, 1000)])
+def test_checksum_kernels_write_only_their_outputs(dev, bsz, n):
+    """The CRC's out and tile scratch and the Adler's partial sums and
+    word between 4 KiB guard zones: the zones hold, the outputs are
+    the plain versions'."""
+    from libflate_tpu_torch import _build
+    rows = _bytes_on(dev, (bsz, n), n)
+    tiles = checksum.crc_tiles(n)
+    out, obuf, opad = _guarded((bsz,), torch.int32, dev, 0x5A5A5A5A)
+    scr, sbuf, spad = _guarded((bsz * tiles,), torch.int32, dev,
+                               0x5A5A5A5A)
+    _build.launch("lf_crc32_rows", rows.data_ptr(), bsz, n, tiles,
+                  checksum._constants_on(rows.device).data_ptr(),
+                  scr.data_ptr(), out.data_ptr())
+    part, pbuf, ppad = _guarded((2 * 3,), torch.int32, dev, 0x5A5A5A5A)
+    word, wbuf, wpad = _guarded((1,), torch.int32, dev, 0x5A5A5A5A)
+    flat = rows.view(-1)[1:]
+    _build.launch("lf_adler32", flat.data_ptr(), flat.numel(), 3,
+                  part.data_ptr(), word.data_ptr())
+    torch.cuda.synchronize()
+    for buf, pad in ((obuf, opad), (sbuf, spad), (pbuf, ppad),
+                     (wbuf, wpad)):
+        assert bool((buf[:pad] == 0x5A5A5A5A).all()
+                    and (buf[-pad:] == 0x5A5A5A5A).all())
+    _eq(out, checksum.crc32_f_rows_plain(rows))
+    assert int(word.item()) & 0xFFFFFFFF == zlib.adler32(
+        flat.cpu().numpy().tobytes())
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 5552, (3 << 20) + 5,
+                               64 << 20])
+def test_adler32_device_kernel_matches_zlib(dev, n):
+    data = _bytes_on(dev, (n + 7,), n)
+    for off in (0, 7):
+        view = data[off:off + n]
+        want = zlib.adler32(view.cpu().numpy().tobytes())
+        before = checksum.adler32_device.launches
+        assert checksum.adler32_device(view) == want
+        assert checksum.adler32_device.launches == before + (n > 0)
+        if n <= 1 << 20:
+            assert checksum.adler32_device_plain(view) == want
+
+
+def test_checksum_kernel_info(dev):
+    for k in ("crc_tiles", "crc_fold", "adler_partial", "adler_fold"):
+        info = checksum.kernel_info(k)
+        assert info["spill_bytes"] == 0 and info["threads"] == 256
+        assert info["blocks_per_sm"] >= 1
+    assert checksum.kernel_info("crc_tiles")["static_smem"] <= 48 * 1024
+    assert checksum.kernel_info()["tile_bytes"] == checksum.CRC_TILE
+    assert checksum.kernel_info()["levels"] == checksum.LEVELS
